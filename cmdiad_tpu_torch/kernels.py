@@ -29,15 +29,22 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 # kernel -> (C entry point, argument types before the trailing stream,
 #            extra nvcc flags).  FPS and the interpolation keep their
 #            distance arithmetic free of FMA contraction so that their
-#            selections match the plain versions exactly.
+#            selections match the plain versions exactly (the int8 bank-min
+#            rounds each operation with intrinsics instead).
 _KERNELS = {
     "fps": ("fps_launch", (_P, _P, _I, _I, _I, _P), ("--fmad=false",)),
     "interp": ("three_nn_interp_launch",
                (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ("--fmad=false",)),
     "bank_min": ("bank_min_launch", (_P, _P, _P, _I, _I, _I, _P, _P), ()),
+    "bank_min_int8": ("bank_min_int8_launch",
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P), ()),
+    "flash_attn": ("flash_attn_launch",
+                   (_P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _I), ()),
+    "int8_dot": ("int8_dot_launch", (_P, _P, _P, _I, _I, _I, _I), ()),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNELS}

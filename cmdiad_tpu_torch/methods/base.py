@@ -25,6 +25,7 @@ import torch
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.fusion.ocsvm import SGDOneClassSVM
 from cmdiad_tpu_torch.metrics import calculate_au_pro, roc_auc_score
+from cmdiad_tpu_torch.ops.bank_min import quantize_rows
 from cmdiad_tpu_torch.ops.coreset import coreset_select
 from cmdiad_tpu_torch.ops.scoring import bank_nn_table, pad_bank, patchcore_score
 
@@ -82,9 +83,9 @@ class MemoryBankMethod:
         self.nn_tables: Dict[str, torch.Tensor] = {}
         self.coreset_idx: Dict[str, torch.Tensor] = {}
         self.stats: Dict[str, Tuple[float, float]] = {}
-        # per bank: bfloat16 copy and exact squared row norms for the
-        # bank-min kernel, made once per fitted or loaded bank
-        self._bank_aux: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # per bank: the bank-min kernel's operands (see
+        # _bank_kernel_operands), made once per fitted or loaded bank
+        self._bank_aux: Dict[str, Dict[str, torch.Tensor]] = {}
 
         self.detect_fuser = SGDOneClassSVM(nu=cfg.ocsvm_nu,
                                            max_iter=cfg.ocsvm_maxiter,
@@ -152,24 +153,33 @@ class MemoryBankMethod:
         self._bank_aux = {}
 
     # ---------------- scoring ---------------------------------------------
-    def _bank_kernel_operands(self, name: str):
+    def _bank_kernel_operands(self, name: str) -> Dict[str, torch.Tensor]:
+        """The bank-min kernel's operands of bank ``name``: exact squared
+        row norms plus the bfloat16 rows (``l2``) or the int8 rows and row
+        scales (``l2_int8``); empty for the exact metrics."""
+        metric = self.cfg.dist_method_s
+        if metric not in ("l2", "l2_int8"):
+            return {}
         if name not in self._bank_aux:
             bank = self.banks[name]
-            self._bank_aux[name] = (bank.to(torch.bfloat16).contiguous(),
-                                    torch.sum(bank * bank, dim=1).contiguous())
+            ops = {"bnorm": torch.sum(bank * bank, dim=1).contiguous()}
+            if metric == "l2":
+                ops["bank_bf16"] = bank.to(torch.bfloat16).contiguous()
+            else:
+                ops["bank_s8"], ops["bscale"] = quantize_rows(bank)
+            self._bank_aux[name] = ops
         return self._bank_aux[name]
 
     def score_patch_batch(self, patches: torch.Tensor, bank_name: str):
         """patches (B, Np, D) -> (s (B,), s_map (B, gt, gt))."""
         side = int(np.sqrt(patches.shape[1]))
         mean, std = self.stats[bank_name]
-        bank_bf16, bnorm = (self._bank_kernel_operands(bank_name)
-                            if self.cfg.dist_method_s == "l2" else (None, None))
         return patchcore_score(
             (patches - mean) / std, self.banks[bank_name], (side, side),
             out_size=self.cfg.gt_size, metric=self.cfg.dist_method_s,
             n_reweight=self.cfg.n_reweight, n_valid=self.bank_sizes[bank_name],
-            nn_table=self.nn_tables[bank_name], bank_bf16=bank_bf16, bnorm=bnorm)
+            nn_table=self.nn_tables[bank_name],
+            bank_operands=self._bank_kernel_operands(bank_name))
 
     # ---------------- late fusion ------------------------------------------
     def run_late_fusion(self):

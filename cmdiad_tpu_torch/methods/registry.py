@@ -22,7 +22,7 @@ def build_backbone(cfg: Config, device="cuda") -> DualBackbone:
     return DualBackbone(
         rgb_backbone_name=cfg.rgb_backbone_name, num_group=cfg.num_group,
         group_size=cfg.group_size, compute_dtype=cfg.compute_dtype,
-        device=device, seed=cfg.seed)
+        use_flash=cfg.use_flash, device=device, seed=cfg.seed)
 
 
 def build_method(cfg: Config, backbone: Optional[DualBackbone] = None,

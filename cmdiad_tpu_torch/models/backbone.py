@@ -55,7 +55,7 @@ class DualBackbone:
                  vit_config: Optional[ViTConfig] = None,
                  pm_config: Optional[PointMAEConfig] = None,
                  point_capacity: Optional[int] = 32768,
-                 device="cuda", seed: int = 0):
+                 use_flash: bool = False, device="cuda", seed: int = 0):
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
@@ -66,10 +66,14 @@ class DualBackbone:
         # before FPS/KNN when the grid has more cells; None disables
         self.point_capacity = point_capacity
         # built on the meta device so construction draws no random numbers;
-        # every weight then comes from the seeded generator
+        # every weight then comes from the seeded generator.  use_flash sends
+        # the attention of both networks through the fused kernel
+        # (ops/flash_attn.py) instead of the einsum form
         with torch.device("meta"):
-            self.vit = VisionTransformer(self.vit_config, dtype=dtype)
-            self.point = PointTransformer(self.pm_config, dtype=dtype)
+            self.vit = VisionTransformer(self.vit_config, dtype=dtype,
+                                         use_flash=use_flash)
+            self.point = PointTransformer(self.pm_config, dtype=dtype,
+                                          use_flash=use_flash)
         self.vit.to_empty(device="cpu")
         self.point.to_empty(device="cpu")
         init_weights(self.vit, seed)

@@ -114,18 +114,19 @@ PointBlock = Block
 
 
 class _Blocks(nn.Module):
-    def __init__(self, cfg: PointMAEConfig):
+    def __init__(self, cfg: PointMAEConfig, use_flash: bool):
         super().__init__()
         self.blocks = nn.ModuleList(
             PointBlock(cfg.trans_dim, cfg.num_heads, cfg.mlp_ratio,
-                       cfg.qkv_bias, cfg.ln_eps) for _ in range(cfg.depth))
+                       cfg.qkv_bias, cfg.ln_eps, use_flash)
+            for _ in range(cfg.depth))
 
 
 class PointTransformer(nn.Module):
     """Encoder + transformer over grouped point tokens -> (B, G, out_dim)."""
 
     def __init__(self, config: PointMAEConfig = PointMAEConfig(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
         super().__init__()
         if config.encoder_dims != config.trans_dim:
             raise NotImplementedError("the Point-BERT flavour is not ported yet")
@@ -134,7 +135,7 @@ class PointTransformer(nn.Module):
         self.encoder = GroupEncoder(c.encoder_dims)
         self.pos_embed = nn.Sequential(
             nn.Linear(3, 128), nn.GELU(), nn.Linear(128, c.trans_dim))
-        self.blocks = _Blocks(c)
+        self.blocks = _Blocks(c, use_flash)
         self.norm = nn.LayerNorm(c.trans_dim, eps=c.ln_eps)
 
     def forward(self, points, centers, idx):

@@ -7,9 +7,10 @@ token + learned position embeddings, 4x exact-GELU MLPs, LayerNorm eps
 1e-6, qkv with bias.  Module names follow timm, so a timm state dict loads
 directly.
 
-Attention is the plain einsum/softmax form of the JAX package's fallback:
-scores are summed in float32 and stored in the compute dtype before a
-float32 softmax (at bfloat16 that rounds the scores, as the JAX path does).
+Attention goes through ``ops.flash_attn.fused_attention``: the einsum form
+by default, the fused kernel with ``use_flash`` (the JAX package's switch of
+the same name).  Point-MAE's blocks are these blocks, so that one call site
+serves both backbones.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cmdiad_tpu_torch.ops.flash_attn import fused_attention
 
 
 @dataclass(frozen=True)
@@ -50,13 +53,6 @@ VIT_CONFIGS = {
 }
 
 
-def attention(q, k, v, scale: float):
-    """softmax(q·kᵀ·scale)·v per head; q, k, v (B, N, H, Dh) -> (B, N, H, Dh)."""
-    attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
-    attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
-    return torch.einsum("bhnm,bmhd->bnhd", attn, v)
-
-
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm computed in float32, returned in the input's dtype."""
     return F.layer_norm(x.to(torch.float32), norm.normalized_shape,
@@ -71,9 +67,11 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
+                 use_flash: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.use_flash = use_flash
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
@@ -81,7 +79,8 @@ class Attention(nn.Module):
         b, n, c = x.shape
         hd = c // self.num_heads
         qkv = linear(self.qkv, x).reshape(b, n, 3, self.num_heads, hd)
-        out = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], hd ** -0.5)
+        out = fused_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                              hd ** -0.5, use_flash=self.use_flash)
         return linear(self.proj, out.reshape(b, n, c))
 
 
@@ -96,10 +95,11 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim, num_heads, mlp_ratio, qkv_bias, ln_eps):
+    def __init__(self, dim, num_heads, mlp_ratio, qkv_bias, ln_eps,
+                 use_flash: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -118,7 +118,7 @@ class VisionTransformer(nn.Module):
     """Forward-features ViT returning the patch-token grid (B, g, g, C)."""
 
     def __init__(self, config: ViTConfig = ViTConfig(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
         super().__init__()
         c = self.config = config
         self.dtype = dtype
@@ -126,8 +126,8 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, c.num_patches + 1, c.embed_dim))
         self.blocks = nn.ModuleList(
-            Block(c.embed_dim, c.num_heads, c.mlp_ratio, c.qkv_bias, c.ln_eps)
-            for _ in range(c.depth))
+            Block(c.embed_dim, c.num_heads, c.mlp_ratio, c.qkv_bias, c.ln_eps,
+                  use_flash) for _ in range(c.depth))
         self.norm = nn.LayerNorm(c.embed_dim, eps=c.ln_eps)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,24 @@
-"""Memory-bank min/argmin with a bfloat16 cross term, then an exact refine.
+"""Memory-bank min/argmin with a quantised cross term, then an exact refine.
 
 For each query row the bank row minimising |b|^2 - 2 b.q is chosen with
-b.q taken over operands rounded to bfloat16 and summed in float32 (|b|^2
-and |q|^2 stay exact float32), ties going to the lowest row.  With
-``refine`` the returned distance is then recomputed exactly in float32 from
-the chosen row, sqrt(sum((q - b)^2)): the rounded product only chooses the
-row, and the only residual error is a near-tie choosing another row whose
-true distance is reported.
+b.q taken over quantised operands (|b|^2 and |q|^2 stay exact float32),
+ties going to the lowest row.  Two modes:
 
-``bank_min_bf16`` launches the CUDA kernel (``csrc/bank_min.cu``) for CUDA
-tensors and runs ``_bank_min_plain`` for CPU tensors.  This module is the
-port's counterpart of the JAX package's ``ops/pallas_scoring.py`` (its
-bfloat16 mode; the int8 mode is not ported yet).
+* bfloat16 (``bank_min_bf16``, ``dist_method_s='l2'``): operands rounded
+  to bfloat16, products summed in float32;
+* int8 (``bank_min_int8``, ``dist_method_s='l2_int8'``): operands
+  quantised per row to int8 (``quantize_rows``), the s8.s8 -> s32 product
+  dequantised as float(prod) * (bscale * qscale).
+
+With ``refine`` the returned distance is then recomputed exactly in float32
+from the chosen row, sqrt(sum((q - b)^2)): the quantised product only
+chooses the row, and the only residual error is a near-tie choosing another
+row whose true distance is reported.
+
+Each mode launches its CUDA kernel (``csrc/bank_min.cu``,
+``csrc/bank_min_int8.cu``) for CUDA tensors and runs its plain version for
+CPU tensors.  This module is the port's counterpart of the JAX package's
+``ops/pallas_scoring.py``.
 """
 
 from __future__ import annotations
@@ -20,9 +27,11 @@ import torch
 
 from cmdiad_tpu_torch import kernels
 
-# bank rows and feature width the kernel tiles by (csrc/bank_min.cu)
+# bank rows and feature width the kernels tile by (csrc/bank_min.cu,
+# csrc/bank_min_int8.cu)
 ROW_TILE = 64
 COL_TILE = 64
+COL_TILE_INT8 = 128
 
 
 def _bank_min_plain(q_bf16: torch.Tensor, bank_bf16: torch.Tensor,
@@ -61,6 +70,63 @@ def _bank_min_cuda(q_bf16: torch.Tensor, bank_bf16: torch.Tensor,
     return out_v, out_i.to(torch.int64)
 
 
+def quantize_rows(x: torch.Tensor):
+    """Symmetric per-row int8 quantisation: (N, D) float32 -> (int8 (N, D),
+    float32 scales (N,)), scale = max(amax, 1e-30) / 127 and
+    clip(round(x / scale), -127, 127) with round half to even."""
+    x = x.to(torch.float32)
+    scale = torch.clamp_min(torch.amax(torch.abs(x), dim=1), 1e-30) / 127.0
+    q = torch.clamp(torch.round(x / scale[:, None]), -127, 127)
+    return q.to(torch.int8).contiguous(), scale.contiguous()
+
+
+def _bank_min_int8_plain(q_s8: torch.Tensor, qscale: torch.Tensor,
+                         bank_s8: torch.Tensor, bscale: torch.Tensor,
+                         bnorm: torch.Tensor, chunk: int = 8192):
+    """Plain version of the int8 kernel: (min of |b|^2 - 2 p (N,), argmin
+    (N,) int64) with p = float(q8.b8) * (bscale * qscale), each operation
+    rounded on its own in the kernel's order.  The integer product is taken
+    as a float32 product of integers, exact while every partial sum stays
+    below 2^24 (127 * 127 * D: widths up to 1040)."""
+    d = q_s8.shape[1]
+    if 127 * 127 * d >= 2 ** 24:
+        raise ValueError(f"width {d}: the float32 product of int8 rows is "
+                         f"exact only up to 1040 columns")
+    q = q_s8.to(torch.float32)
+    best_v = torch.full((q.shape[0],), 3.4e38, device=q.device)
+    best_i = torch.zeros((q.shape[0],), dtype=torch.int64, device=q.device)
+    for s in range(0, bank_s8.shape[0], chunk):
+        prod = q @ bank_s8[s:s + chunk].to(torch.float32).T
+        p = prod * (bscale[s:s + chunk][None, :] * qscale[:, None])
+        d2 = bnorm[s:s + chunk][None, :] - 2.0 * p
+        v, i = torch.min(d2, dim=1)
+        take = v < best_v
+        best_v = torch.where(take, v, best_v)
+        best_i = torch.where(take, i + s, best_i)
+    return best_v, best_i
+
+
+def _bank_min_int8_cuda(q_s8: torch.Tensor, qscale: torch.Tensor,
+                        bank_s8: torch.Tensor, bscale: torch.Tensor,
+                        bnorm: torch.Tensor):
+    n, d = q_s8.shape
+    nb = bank_s8.shape[0]
+    if nb % ROW_TILE or d % COL_TILE_INT8:
+        raise ValueError(f"int8 bank-min kernel needs rows % {ROW_TILE} == 0 "
+                         f"and width % {COL_TILE_INT8} == 0, got ({nb}, {d})")
+    kernels.check_cuda_tensor(q_s8, "queries", torch.int8, (n, d))
+    kernels.check_cuda_tensor(qscale, "query scales", torch.float32, (n,))
+    kernels.check_cuda_tensor(bank_s8, "bank", torch.int8, (nb, d))
+    kernels.check_cuda_tensor(bscale, "bank scales", torch.float32, (nb,))
+    kernels.check_cuda_tensor(bnorm, "bank norms", torch.float32, (nb,))
+    out_v = torch.empty((n,), dtype=torch.float32, device=q_s8.device)
+    out_i = torch.empty((n,), dtype=torch.int32, device=q_s8.device)
+    kernels.launch("bank_min_int8", q_s8.data_ptr(), qscale.data_ptr(),
+                   bank_s8.data_ptr(), bscale.data_ptr(), bnorm.data_ptr(),
+                   n, nb, d, out_v.data_ptr(), out_i.data_ptr())
+    return out_v, out_i.to(torch.int64)
+
+
 def exact_refine(patch: torch.Tensor, bank: torch.Tensor,
                  min_idx: torch.Tensor) -> torch.Tensor:
     """Exact float32 distance of each query row to its chosen bank row, in
@@ -89,6 +155,32 @@ def bank_min_bf16(patch: torch.Tensor, bank: torch.Tensor,
         v, idx = _bank_min_cuda(q_bf16, bank_bf16, bnorm)
     else:
         v, idx = _bank_min_plain(q_bf16, bank_bf16, bnorm)
+    return _finish(p, bank, v, idx, refine)
+
+
+def bank_min_int8(patch: torch.Tensor, bank: torch.Tensor,
+                  refine: bool = True, bank_s8=None, bscale=None, bnorm=None):
+    """As ``bank_min_bf16`` with the int8 cross term (the JAX package's
+    ``compute_dtype='int8'``).  ``bank_s8``/``bscale``/``bnorm`` may carry
+    the bank's quantised rows, row scales and exact squared row norms when
+    the caller keeps them."""
+    p = patch.to(torch.float32).contiguous()
+    if bank_s8 is None or bscale is None:
+        bank_s8, bscale = quantize_rows(bank)
+    if bnorm is None:
+        bf = bank.to(torch.float32)
+        bnorm = torch.sum(bf * bf, dim=1).contiguous()
+    q_s8, qscale = quantize_rows(p)
+    if p.is_cuda:
+        v, idx = _bank_min_int8_cuda(q_s8, qscale, bank_s8, bscale, bnorm)
+    else:
+        v, idx = _bank_min_int8_plain(q_s8, qscale, bank_s8, bscale, bnorm)
+    return _finish(p, bank, v, idx, refine)
+
+
+def _finish(p, bank, v, idx, refine):
+    """(distance, row): the chosen row's exact distance with ``refine``,
+    else sqrt(max(|q|^2 + v, 0)) from the quantised product."""
     if refine:
         return exact_refine(p, bank, idx), idx
     pnorm = torch.sum(p * p, dim=1)

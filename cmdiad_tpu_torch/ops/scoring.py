@@ -5,11 +5,13 @@ image score from the most anomalous patch reweighted by its bank
 neighbourhood (paper eq. 7), and a blurred bilinear-upsampled segmentation
 map — for a batch of samples at once.
 
-Routing: an ``l2`` bank goes through ``ops.bank_min.bank_min_bf16`` on
-every device (the CUDA kernel for CUDA tensors, its plain version for CPU
-tensors): the bfloat16 product chooses the nearest row and its distance is
-recomputed exactly in float32.  ``l1`` and ``cos_dist`` take the exact
-chunked path.
+Routing, the same on every device (the CUDA kernel for CUDA tensors, its
+plain version for CPU tensors): an ``l2`` bank goes through
+``ops.bank_min.bank_min_bf16`` and an ``l2_int8`` bank through
+``ops.bank_min.bank_min_int8``; the quantised product chooses the nearest
+row and its distance is recomputed exactly in float32.  ``l1`` and
+``cos_dist`` take the exact chunked path.  Every dense distance here
+(``cdist``, and through it the NN table) computes ``l2_int8`` as exact l2.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import math
 
 import torch
 
-from cmdiad_tpu_torch.ops.bank_min import bank_min_bf16
+from cmdiad_tpu_torch.ops.bank_min import bank_min_bf16, bank_min_int8
 from cmdiad_tpu_torch.ops.blur import knn_gaussian_blur
 from cmdiad_tpu_torch.ops.pooling import bilinear_resize
 
@@ -29,10 +31,11 @@ _FAR = 3.4e38
 
 def cdist(a: torch.Tensor, b: torch.Tensor, metric: str = "l2") -> torch.Tensor:
     """Dense pairwise distances (N, D) x (M, D) -> (N, M) for the
-    reference's three metrics: 'l2' (euclidean), 'l1', 'cos_dist'."""
+    reference's three metrics: 'l2' (euclidean), 'l1', 'cos_dist'.  'l2_int8'
+    quantises only the bank-min kernel's cross term; here it is exact l2."""
     a = a.to(torch.float32)
     b = b.to(torch.float32)
-    if metric == "l2":
+    if metric in ("l2", "l2_int8"):
         a2 = torch.sum(a * a, -1)[:, None]
         b2 = torch.sum(b * b, -1)[None, :]
         return torch.sqrt(torch.clamp_min(a2 + b2 - 2.0 * (a @ b.T), 0.0))
@@ -137,24 +140,28 @@ def patchcore_finish(patch, bank, min_val, min_idx, feat_hw,
 def patchcore_score(patch: torch.Tensor, bank: torch.Tensor, feat_hw,
                     out_size: int = 224, metric: str = "l2",
                     n_reweight: int = 3, blur_radius: float = 4.0,
-                    n_valid=None, nn_table=None, bank_bf16=None, bnorm=None):
+                    n_valid=None, nn_table=None, bank_operands=None):
     """Image scores and segmentation maps of a batch against one bank.
 
     patch (B, Np, D) normalised test patches, bank (Nb, D), feat_hw with
     h * w == Np.  Mirrors the reference ``compute_single_s_s_map``:
     s_map = per-patch NN distance, bilinear to out_size², PIL-style blur;
     s = w * s*, with s* the largest patch NN distance and w the eq. 7
-    reweight over the bank neighbours of that patch's NN.
+    reweight over the bank neighbours of that patch's NN.  ``bank_operands``
+    carries the bank's kernel operands when the caller keeps them (the
+    keyword arguments of ``bank_min_bf16`` or ``bank_min_int8``).
     """
     b, n, d = patch.shape
     flat = patch.reshape(b * n, d)
+    ops = bank_operands or {}
     if metric == "l2":
-        min_val, min_idx = bank_min_bf16(flat, bank, bank_bf16=bank_bf16,
-                                         bnorm=bnorm)
+        min_val, min_idx = bank_min_bf16(flat, bank, **ops)
+    elif metric == "l2_int8":
+        min_val, min_idx = bank_min_int8(flat, bank, **ops)
     elif metric in ("l1", "cos_dist"):
         min_val, min_idx = bank_min_dist(flat, bank, metric, n_valid=n_valid)
     else:
-        raise NotImplementedError(f"metric {metric!r} is not ported yet")
+        raise ValueError(f"unknown metric {metric!r}")
     return patchcore_finish(patch, bank, min_val.reshape(b, n),
                             min_idx.reshape(b, n), feat_hw, out_size=out_size,
                             metric=metric, n_reweight=n_reweight,

@@ -181,3 +181,158 @@ def test_refine_removes_the_raw_product_error(rng):
     exact = np.sqrt(((q.astype(np.float64) - bank[idx.numpy()]) ** 2).sum(1))
     assert np.max(np.abs(raw.numpy() - exact)[:20]) > 1e-2
     np.testing.assert_allclose(ref.numpy(), exact, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------ int8 bank min ---
+
+def test_quantize_rows_matches_jax(rng):
+    """Per-row int8 quantisation: the same int8 rows and scales as the JAX
+    package's ``_quantize_rows``, bank padding rows and all-zero rows
+    included (round half to even on both sides)."""
+    from cmdiad_tpu.ops.pallas_scoring import _quantize_rows
+    from cmdiad_tpu_torch.ops.scoring import PAD_VALUE
+    x = rng.normal(size=(40, 64)).astype(np.float32)
+    x[3] = PAD_VALUE                                  # a bank padding row
+    x[5] = 0.0                                        # a zero query row
+    x[7, :4] = [127.0, 0.5, 1.5, -2.5]                # exact halves
+    x[7, 4:] = 0.0
+    want_q, want_s = _quantize_rows(jnp.asarray(x))
+    got_q, got_s = bm.quantize_rows(_t(x))
+    assert got_q.dtype == torch.int8 and got_s.shape == (40,)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s)[:, 0])
+    assert (got_q[5] == 0).all() and (got_q[3] == 127).all()
+    np.testing.assert_array_equal(got_q[7, :4].numpy(), [127, 0, 2, -2])
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_bank_min_int8_plain_matches_pallas_kernel(rng, refine):
+    """s8.s8 products exact on both sides and the same dequantise order:
+    the same rows, the first of two duplicates included; values to 1e-5."""
+    q, bank = _bank_inputs(rng, nq=300, nb=2048, d=64)
+    bank[2040:] = 1e6                               # padding rows never win
+    want_v, want_i = bank_min_dist_pallas(jnp.asarray(q), jnp.asarray(bank),
+                                          tile=256, compute_dtype="int8",
+                                          refine=refine)
+    got_v, got_i = bm.bank_min_int8(_t(q), _t(bank), refine=refine)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    assert got_i[7] == 10
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bank_min_int8_raw_values_are_the_quantised_distance(rng):
+    """The plain version's raw value is |b|^2 - 2 float(q8.b8)(bs qs) of the
+    row it returns, and no row has a smaller one (float64 recomputation)."""
+    q, bank = _bank_inputs(rng, nq=50, nb=2048, d=32)
+    q8, qs = bm.quantize_rows(_t(q))
+    b8, bs = bm.quantize_rows(_t(bank))
+    bnorm = torch.sum(_t(bank) ** 2, 1)
+    v, i = bm._bank_min_int8_plain(q8, qs, b8, bs, bnorm)
+    prod = q8.double() @ b8.double().T
+    d2 = (bnorm.double()[None] - 2 * prod * (bs.double()[None] * qs.double()[:, None]))
+    np.testing.assert_allclose(v.double().numpy(), d2.min(1).values.numpy(),
+                               rtol=1e-6, atol=1e-3)
+    np.testing.assert_array_equal(i.numpy(), d2.argmin(1).numpy())
+
+
+# ---------------------------------------------------- fused attention ---
+
+def _flash_pallas(q, k, v, scale):
+    """The JAX package's kernel as its own wrapper feeds it: q pre-scaled
+    in its dtype, heads split, sequence padded to 128 rows and (bfloat16)
+    the head dim padded as ``_head_pad`` does; run in interpret mode."""
+    from cmdiad_tpu.ops.flash_attn import BLOCK_Q, _flash_call, _head_pad
+    b, n, h, d = q.shape
+    n_pad = -(-n // BLOCK_Q) * BLOCK_Q
+    d_pad = _head_pad(d, q.dtype)
+
+    def th(x):
+        x = x.transpose(0, 2, 1, 3).reshape(b * h, n, d)
+        return jnp.pad(x, ((0, 0), (0, n_pad - n), (0, d_pad - d)))
+
+    qt = th(q * jnp.asarray(scale, q.dtype)).transpose(0, 2, 1)
+    o = _flash_call(qt, th(k), th(v), n)
+    return np.asarray(o[:, :n, :d].reshape(b, h, n, d).transpose(0, 2, 1, 3)
+                      .astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [64, 135])
+def test_fused_attention_plain_matches_pallas_kernel(rng, n, dtype):
+    """float32: summation order only (2e-5).  bfloat16: the same scores in
+    float32 and the same rounding points (p and the output), so the two
+    differ where a float32 sum rounds to the other neighbour in bfloat16:
+    at most one bfloat16 ulp of the output (2^-7 relative) plus a p ulp."""
+    from cmdiad_tpu_torch.ops.flash_attn import fused_attention
+    b, h, d = 2, 2, 64
+    x = [rng.normal(size=(b, n, h, d)).astype(np.float32) for _ in range(3)]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    scale = d ** -0.5
+    want = _flash_pallas(*[jnp.asarray(a, jdt) for a in x], scale)
+    got = fused_attention(*[_t(a).to(tdt) for a in x], scale, use_flash=True)
+    assert got.dtype == tdt and got.shape == (b, n, h, d)
+    got = got.to(torch.float32).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-3)
+        assert np.mean(got != want) < 0.05
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_einsum_attention_matches_jax_fallback(rng, dtype):
+    """use_flash=False is the JAX package's einsum fallback, rounding of
+    the bfloat16 scores included.  In bfloat16 the two sum the scores in
+    another float32 order, so now and then a score rounds to the other
+    bfloat16 neighbour: one score ulp (2^-7 relative, |s| < 4 here) moves
+    that key's p by as much, which moves the output by up to ~1e-2 at
+    |v| < 4.  Elsewhere the outputs differ by their own rounding (one ulp,
+    2^-8 relative), so the mean difference stays below that."""
+    from cmdiad_tpu.ops.flash_attn import fused_attention as jax_attention
+    from cmdiad_tpu_torch.ops.flash_attn import fused_attention
+    x = [rng.normal(size=(2, 135, 2, 32)).astype(np.float32) for _ in range(3)]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want = np.asarray(jax_attention(*[jnp.asarray(a, jdt) for a in x], 32 ** -0.5,
+                                    use_flash=False).astype(jnp.float32))
+    got = fused_attention(*[_t(a).to(tdt) for a in x], 32 ** -0.5,
+                          use_flash=False).to(torch.float32).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-2)
+        assert np.mean(np.abs(got - want)) <= 2 ** -8 * np.mean(np.abs(want))
+
+
+# --------------------------------------------------------- int8 probe ---
+
+def test_int8_dot_plain_matches_the_probe_kernel(rng):
+    """The probe's Pallas kernel (interpret mode) on its small shape:
+    int8 exact, bfloat16 to float32 summation order."""
+    import functools
+    import importlib.util
+    from pathlib import Path
+    from jax.experimental import pallas as pl
+    from cmdiad_tpu_torch.ops.int8_dot import int8_dot
+    spec = importlib.util.spec_from_file_location(
+        "probe_int8_dot",
+        Path(__file__).resolve().parents[1] / "benchmarks" / "probe_int8_dot.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    m, k, n = 128, 256, 128
+    a = rng.integers(-127, 127, (m, k)).astype(np.int8)
+    b = rng.integers(-127, 127, (k, n)).astype(np.int8)
+    for jdt, acc, tdt in ((jnp.int8, jnp.int32, torch.int8),
+                          (jnp.bfloat16, jnp.float32, torch.bfloat16)):
+        want = np.asarray(pl.pallas_call(
+            functools.partial(probe._kern, acc_dtype=acc),
+            out_shape=jax.ShapeDtypeStruct((m, n), acc), interpret=True)(
+                jnp.asarray(a, jdt), jnp.asarray(b, jdt)))
+        got = int8_dot(_t(a).to(tdt), _t(b.T.copy()).to(tdt)).numpy()
+        if tdt == torch.int8:
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-2)

@@ -4,6 +4,7 @@ parameters carried across by ``models.bridge``.
 float32 on both sides: features agree to about 1e-5 relative (summation
 order, and Flax's E[x²]−E[x]² LayerNorm variance against PyTorch's).
 FPS and KNN pick the same centres and neighbour sets on these inputs.
+bfloat16 on both sides: features agree to a few bfloat16 ulps.
 """
 
 import numpy as np
@@ -92,15 +93,37 @@ def test_point_mae_xyz_patches_match(pair, capacity):
     _close(got["xyz_patch"].numpy(), want["xyz_patch"])
 
 
-def test_models_run_in_bfloat16(rng):
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_models_run_in_bfloat16(rng, use_flash):
+    """bfloat16 backbones against the JAX package's, bridged parameters.
+    Both round every layer's output to bfloat16 at the same points but sum
+    in other float32 orders, so now and then an element lands on the other
+    bfloat16 neighbour (2^-8 relative) and that carries through the blocks:
+    held to 4 ulps of the largest feature and 2 ulps on average.  On the
+    CPU the JAX package runs ``use_flash`` as its einsum form; the port runs
+    the fused kernel's plain version (unrounded float32 scores)."""
+    jb = JaxBackbone(vit_config=JaxViT(**SMALL_VIT), pm_config=JaxPM(**SMALL_PM),
+                     use_pallas=False, image_size=SIZE, compute_dtype="bfloat16",
+                     use_flash=use_flash)
+    params = jax.device_get(jb.init_params(0))
     tb = DualBackbone(vit_config=ViTConfig(**SMALL_VIT),
                       pm_config=PointMAEConfig(**SMALL_PM),
-                      compute_dtype="bfloat16", device="cpu")
+                      compute_dtype="bfloat16", use_flash=use_flash, device="cpu")
+    load_jax_params(tb, params)
+    img = rng.normal(size=(2, SIZE, SIZE, 3)).astype(np.float32)
     pcs = np.stack([_blob_pc(np.random.default_rng(i), SIZE)[0] for i in range(2)])
-    out = tb.extract(images=torch.from_numpy(rng.normal(size=(2, SIZE, SIZE, 3)).astype(np.float32)),
-                     organized_pc=torch.from_numpy(pcs))
-    assert out["rgb_patch"].dtype == torch.float32
-    assert torch.isfinite(out["xyz_patch"]).all() and torch.isfinite(out["rgb_patch"]).all()
+    want = dict(zip(("rgb_patch", "rgb_patch2"),
+                    jb.rgb_patches(params, jnp.asarray(img))))
+    want.update(jb.xyz_patches(params, jnp.asarray(pcs)))
+    got = tb.extract(images=torch.from_numpy(img), organized_pc=torch.from_numpy(pcs))
+    np.testing.assert_array_equal(got["center_idx"].numpy(), np.asarray(want["center_idx"]))
+    ulp = 2.0 ** -8
+    for k in ("rgb_patch", "rgb_patch2", "group_feats", "xyz_patch"):
+        assert got[k].dtype == torch.float32, k
+        g, w = got[k].numpy(), np.asarray(want[k], np.float32)
+        diff = np.abs(g - w)
+        assert diff.max() <= 4 * ulp * np.abs(w).max(), (k, diff.max())
+        assert diff.mean() <= 2 * ulp * np.abs(w).mean(), (k, diff.mean())
 
 
 @pytest.mark.slow

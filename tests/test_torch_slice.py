@@ -63,11 +63,13 @@ def _clear_jax_programs():
 
 @pytest.fixture(scope="module")
 def jax_bf16_selection():
-    """Route the JAX package's l2 scoring through its bf16 bank-min kernel
-    (interpreted on the CPU) for this module, then restore the gate."""
+    """Route the JAX package's l2 and l2_int8 scoring through its bf16 and
+    int8 bank-min kernels (interpreted on the CPU) for this module, then
+    restore the gate."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_scoring, "use_scoring_kernel",
-               lambda rows, metric: metric == "l2" and rows % 1024 == 0)
+               lambda rows, metric: (metric in ("l2", "l2_int8")
+                                     and rows % 1024 == 0))
     _clear_jax_programs()
     yield
     mp.undo()
@@ -195,6 +197,49 @@ def test_port_fit_tracks_jax_fit(fitted):
     for k in METRICS:
         assert abs(mt[k] - mj[k]) <= 1e-2, (k, mt, mj)
     assert mt["pixel_rocauc"] > 0.9 and mt["image_rocauc"] > 0.5
+
+
+THROUGHPUT = dict(compute_dtype="bfloat16", dist_method_s="l2_int8", use_flash=True)
+# The JAX package's own envelopes of the default path's metrics, summed:
+# bfloat16 backbones (tests/test_e2e.py, 0.01 on pixel AUROC and AU-PRO)
+# plus int8 scoring (tests/test_tpu_only.py, 0.02 and 0.05).
+THROUGHPUT_ENVELOPE = {"pixel_rocauc": 0.01 + 0.02, "au_pro": 0.01 + 0.05}
+
+
+def test_throughput_configuration_tracks_jax(fitted, samples):
+    """bfloat16 backbones, int8 bank selection and fused attention, fitted
+    and evaluated by each package on the same samples and weights.  Both
+    select through their int8 kernels (the JAX one interpreted) and refine
+    exactly; on the CPU the JAX package runs ``use_flash`` as its einsum
+    form, which rounds the scores to bfloat16, while the port runs the fused
+    kernel's plain version.  The metrics are held to the envelopes above,
+    against the JAX package and against the port's own default path."""
+    train, test = samples
+    jb = JaxBackbone(vit_config=JaxViT(**SMALL_VIT), pm_config=JaxPM(**SMALL_PM),
+                     use_pallas=False, image_size=SIZE, compute_dtype="bfloat16",
+                     use_flash=True)
+    params = jax.device_get(jb.init_params(0))
+    tb = DualBackbone(vit_config=ViTConfig(**SMALL_VIT),
+                      pm_config=PointMAEConfig(**SMALL_PM),
+                      compute_dtype="bfloat16", use_flash=True, device="cpu")
+    load_jax_params(tb, params)
+    runner = CMDIADRunner(Config(**CFG, **THROUGHPUT), backbone=tb, device="cpu")
+    runner.fit("widget", train)
+    mt = runner.evaluate("widget", test)
+    assert set(runner.method._bank_kernel_operands("xyz")) == {"bnorm", "bank_s8", "bscale"}
+    jm = JaxRunner(JaxConfig(**CFG, **THROUGHPUT), backbone=jb, params=params).method
+    for batch in stack_batches(train, 3):
+        jm.add_batch_to_mem_bank(batch, class_name="widget")
+    jm.run_coreset()
+    for batch in stack_batches(train, 3):
+        jm.add_batch_to_late_fusion_mem_bank(batch)
+    jm.run_late_fusion()
+    mj, _, _ = _serve(jm, test)
+    md, _, _ = _serve(fitted["tr"].method, test)
+    for k, limit in THROUGHPUT_ENVELOPE.items():
+        assert abs(mt[k] - mj[k]) <= limit, (k, mt, mj)
+        assert abs(mt[k] - md[k]) <= limit, (k, mt, md)
+    assert mt["pixel_rocauc"] > 0.9
 
 
 def test_runner_fit_and_evaluate(samples):
