@@ -49,6 +49,10 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# The special-function unit's exponentials per second (FlashAttention-3
+# paper's H100 SXM figure): at head dim 64 one exponential per score costs
+# as much time as the score's 256 bf16 tensor-core operations.
+PEAK_SFU = 3.9e12
 # The fp32 peak counts an FMA as two operations.  FPS and interp are built
 # without FMA contraction, so each of their sub, mul, add and min is one
 # instruction at half that rate.
@@ -76,8 +80,9 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(ops: float, peak_ops: float, nbytes: float):
-    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(ops: float, peak_ops: float, nbytes: float, sfu_ops: float = 0.0):
+    t_ops = max(ops / peak_ops, sfu_ops / PEAK_SFU) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -103,7 +108,11 @@ def check_bank_min(rng, dev, nq: int, nb: int, d: int = 768):
     bnorm = torch.sum(bank * bank, dim=1).contiguous()
     kv, ki = bm._bank_min_cuda(qb, bb, bnorm)
     pv, pi = bm._bank_min_plain(qb, bb, bnorm)
+    # CTAs publish their tiles' minima with atomics in no fixed order; the
+    # packed (value, row) keys make the result independent of that order
+    kv2, ki2 = bm._bank_min_cuda(qb, bb, bnorm)
     torch.cuda.synchronize()
+    assert torch.equal(ki, ki2) and torch.equal(kv, kv2), "two launches differ"
     # the two differ only in float32 summation order: indices agree except
     # where two rows tie within that rounding; the raw values of the row
     # each chose agree to float32 rounding of |b|^2 + 2|b.q| (1e-5 relative)
@@ -268,14 +277,16 @@ def check_flash(rng, dev, dtype: str, n: int, heads: int, batch: int = 8,
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, scale=scale), 10)
     flops = 2 * 2.0 * batch * heads * n * n * d          # q.k^T and p.v
+    n_exp = float(batch * heads * n * n)                 # one per score
     nbytes = 4 * batch * n * heads * d * qkv.element_size()
     bound_ms, bound_by = _bound(flops, PEAK_BF16 if dtype == "bfloat16"
-                                else PEAK_FP32, nbytes)
+                                else PEAK_FP32, nbytes, sfu_ops=n_exp)
     print(f"flash_attn {dtype} B={batch} H={heads} N={n} D={d}: max abs err "
           f"{err:.3e} (tolerance {rtol:g} relative + {atol:g}); kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
+          f"{flops / ms / 1e9:.1f} TFLOP/s, {n_exp / ms / 1e9:.2f} T "
+          f"exponentials/s (one per score)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 

@@ -39,7 +39,7 @@ _KERNELS = {
     "fps": ("fps_launch", (_P, _P, _I, _I, _I, _P), ("--fmad=false",)),
     "interp": ("three_nn_interp_launch",
                (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ("--fmad=false",)),
-    "bank_min": ("bank_min_launch", (_P, _P, _P, _I, _I, _I, _P, _P), ()),
+    "bank_min": ("bank_min_launch", (_P, _P, _P, _I, _I, _I, _P), ()),
     "bank_min_int8": ("bank_min_int8_launch",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P), ()),
     "flash_attn": ("flash_attn_launch",

@@ -27,7 +27,7 @@ import torch
 
 from cmdiad_tpu_torch import kernels
 
-# bank rows and feature width the kernels tile by (csrc/bank_min.cu,
+# bank rows and feature width the kernels accept (csrc/bank_min.cu,
 # csrc/bank_min_int8.cu)
 ROW_TILE = 64
 COL_TILE = 64
@@ -52,6 +52,24 @@ def _bank_min_plain(q_bf16: torch.Tensor, bank_bf16: torch.Tensor,
     return best_v, best_i
 
 
+def pack_min_keys(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(value float32, row) -> int64 keys whose signed order is the
+    lexicographic (value, row) order: the float's bits, magnitude flipped
+    for negative values, above the row (0 <= row < 2^31).  -0.0 packs as
+    +0.0, which a strict '<' does not tell apart.  The bf16 kernel
+    publishes these keys with atomicMin (csrc/bank_min.cu:min_key)."""
+    bits = (v.to(torch.float32) + 0.0).view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return (ordered.to(torch.int64) << 32) | idx.to(torch.int64)
+
+
+def unpack_min_keys(keys: torch.Tensor):
+    """Inverse of ``pack_min_keys``: (value float32, row int64)."""
+    ordered = (keys >> 32).to(torch.int32)
+    bits = torch.where(ordered < 0, ordered ^ 0x7FFFFFFF, ordered)
+    return bits.view(torch.float32), keys & 0xFFFFFFFF
+
+
 def _bank_min_cuda(q_bf16: torch.Tensor, bank_bf16: torch.Tensor,
                    bnorm: torch.Tensor):
     n, d = q_bf16.shape
@@ -62,12 +80,11 @@ def _bank_min_cuda(q_bf16: torch.Tensor, bank_bf16: torch.Tensor,
     kernels.check_cuda_tensor(q_bf16, "queries", torch.bfloat16, (n, d))
     kernels.check_cuda_tensor(bank_bf16, "bank", torch.bfloat16, (nb, d))
     kernels.check_cuda_tensor(bnorm, "bank norms", torch.float32, (nb,))
-    out_v = torch.empty((n,), dtype=torch.float32, device=q_bf16.device)
-    out_i = torch.empty((n,), dtype=torch.int32, device=q_bf16.device)
+    keys = torch.full((n,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                      device=q_bf16.device)
     kernels.launch("bank_min", q_bf16.data_ptr(), bank_bf16.data_ptr(),
-                   bnorm.data_ptr(), n, nb, d, out_v.data_ptr(),
-                   out_i.data_ptr())
-    return out_v, out_i.to(torch.int64)
+                   bnorm.data_ptr(), n, nb, d, keys.data_ptr())
+    return unpack_min_keys(keys)
 
 
 def quantize_rows(x: torch.Tensor):

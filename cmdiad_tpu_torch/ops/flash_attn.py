@@ -21,8 +21,11 @@ import torch
 
 from cmdiad_tpu_torch import kernels
 
-# head dimension the kernel is written for (csrc/flash_attn.cu)
+# head dimension the kernel is written for, and the most tokens its
+# bfloat16 form takes: it keeps a head's K in shared memory
+# (csrc/flash_attn.cu)
 HEAD_DIM = 64
+MAX_TOKENS_BF16 = 1408
 
 
 def _einsum_attention(q, k, v, scale: float):
@@ -47,6 +50,9 @@ def _fused_attention_cuda(q, k, v, scale: float):
         raise ValueError(f"attention kernel needs head dim {HEAD_DIM}, got {d}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"attention kernel takes bfloat16 or float32, got {q.dtype}")
+    if q.dtype == torch.bfloat16 and n > MAX_TOKENS_BF16:
+        raise ValueError(f"bfloat16 attention kernel takes at most "
+                         f"{MAX_TOKENS_BF16} tokens, got {n}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(f"{name}: expected a CUDA {q.dtype} tensor of "

@@ -104,6 +104,36 @@ def test_bank_min_kernel_matches_plain(dev, rng):
     torch.testing.assert_close(val.double(), exact, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("nq,nb", [(300, 320), (129, 64), (1000, 4160)])
+def test_bank_min_kernel_ties_and_ragged_tiles(dev, rng, nq, nb):
+    """Query counts off the 128-query tile and bank rows (64 k) off the
+    256-row tile; integer-valued operands, so every float32 sum is exact
+    and ties are exact: equal rows in the first and the last bank tile,
+    and a zero query whose values are the norms themselves, +0.0 at row 3
+    and -0.0 at row 5.  Indices and raw values equal the plain version's
+    (the first row of the minimum) and two launches agree bit for bit."""
+    d = 128
+    q = rng.integers(-2, 3, (nq, d)).astype(np.float32)
+    bank = rng.integers(-2, 3, (nb, d)).astype(np.float32)
+    bank[nb - 1] = bank[nb // 2] = bank[7]
+    q[0] = bank[7]
+    bank[3] = bank[5] = 0.0
+    q[1] = 0.0
+    qb = torch.from_numpy(q).to(dev, torch.bfloat16)
+    bb = torch.from_numpy(bank).to(dev, torch.bfloat16)
+    bnorm = torch.sum(torch.from_numpy(bank).to(dev) ** 2, 1)
+    bnorm[5] = -0.0
+    before = kernels.LAUNCHES["bank_min"]
+    kv, ki = bm._bank_min_cuda(qb, bb, bnorm)
+    kv2, ki2 = bm._bank_min_cuda(qb, bb, bnorm)
+    assert kernels.LAUNCHES["bank_min"] == before + 2
+    pv, pi = bm._bank_min_plain(qb, bb, bnorm)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.equal(ki, ki2) and torch.equal(kv.view(torch.int32),
+                                                kv2.view(torch.int32))
+    assert int(ki[0]) == 7 and int(ki[1]) == 3 and float(kv[1]) == 0.0
+
+
 def test_bank_min_int8_kernel_matches_plain_bit_for_bit(dev, rng):
     """Indices and raw values identical: ties (duplicate rows), bank
     padding rows, an all-zero query and a ragged query count."""
@@ -138,16 +168,21 @@ def _qkv(rng, dev, dtype, b=2, n=135, h=3):
     return x[:, :, 0], x[:, :, 1], x[:, :, 2]
 
 
-@pytest.mark.parametrize("n", [64, 135, 785])
+@pytest.mark.parametrize("n,b,h", [(64, 2, 3), (135, 2, 3), (785, 2, 3),
+                                   (1024, 2, 3), (785, 8, 12), (1024, 8, 6)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_attn_kernel_matches_plain(dev, rng, dtype, n):
+def test_flash_attn_kernel_matches_plain(dev, rng, dtype, n, b, h):
     """float32: summation order only.  bfloat16: the same rounding points,
     so an element differs where a float32 sum rounds to the other bfloat16
-    neighbour: one output ulp (2^-7 relative) plus a p ulp."""
-    q, k, v = _qkv(rng, dev, dtype, n=n)
+    neighbour: one output ulp (2^-7 relative) plus a p ulp.  The backbones'
+    shapes (B 8, ViT 12 heads x 785, Point-MAE 6 x 1024) take the two CTA
+    shapes of the bfloat16 kernel; two launches agree bit for bit."""
+    q, k, v = _qkv(rng, dev, dtype, b=b, n=n, h=h)
     before = kernels.LAUNCHES["flash_attn"]
     got = fa.fused_attention(q, k, v, 0.125, use_flash=True)
-    assert kernels.LAUNCHES["flash_attn"] == before + 1
+    again = fa.fused_attention(q, k, v, 0.125, use_flash=True)
+    assert kernels.LAUNCHES["flash_attn"] == before + 2
+    assert torch.equal(got, again)
     want = fa._fused_attention_plain(q, k, v, 0.125)
     assert got.dtype == dtype and got.shape == want.shape
     got, want = got.float(), want.float()
@@ -192,6 +227,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.fused_attention(x, x, x, 0.1, use_flash=True)
     x = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa.fused_attention(x, x, x, 0.1, use_flash=True)
+    x = torch.zeros((1, fa.MAX_TOKENS_BF16 + 1, 2, 64), device=dev,
+                    dtype=torch.bfloat16)                # K no longer fits
+    with pytest.raises(ValueError, match="at most"):
         fa.fused_attention(x, x, x, 0.1, use_flash=True)
     a = torch.zeros((100, 128), device=dev, dtype=torch.int8)
     with pytest.raises(ValueError, match="% 64"):

@@ -183,6 +183,80 @@ def test_refine_removes_the_raw_product_error(rng):
     np.testing.assert_allclose(ref.numpy(), exact, rtol=1e-6, atol=1e-6)
 
 
+# The bf16 kernel publishes each query's (value, row) as one 64-bit key
+# with atomicMin from CTAs that each saw a 2-D tile of the product; the
+# wrapper unpacks the keys.  These tests hold the packing to the
+# lexicographic (value, lowest row) order the strict '<' scan gives.
+
+def _key_values(rng, kind):
+    """float32 values of one sign pattern, with ±0.0, extremes, subnormals
+    and planted ties (every value repeated at other rows)."""
+    v = rng.normal(size=300) * 10.0 ** rng.integers(-30, 30, 300)
+    if kind == "negative":
+        v = -np.abs(v)
+    elif kind == "positive":
+        v = np.abs(v)
+    v = np.concatenate([v, [0.0, -0.0, 1e-40, -1e-40, 3.4e38, -3.4e38]])
+    v = v.astype(np.float32)
+    return np.concatenate([v, v[::-1], v[:40]])
+
+
+@pytest.mark.parametrize("kind", ["negative", "positive", "mixed"])
+def test_min_keys_round_trip(rng, kind):
+    """unpack(pack(v, row)) gives v back bit for bit (-0.0 as +0.0) and the
+    row, rows up to 2^31 - 1."""
+    v = _key_values(rng, kind)
+    rows = rng.integers(0, 2 ** 31 - 1, v.size)
+    rows[:3] = [0, 1, 2 ** 31 - 1]
+    got_v, got_i = bm.unpack_min_keys(bm.pack_min_keys(_t(v), _t(rows)))
+    assert got_i.dtype == torch.int64 and got_v.dtype == torch.float32
+    np.testing.assert_array_equal(got_i.numpy(), rows)
+    np.testing.assert_array_equal(got_v.numpy().view(np.int32),
+                                  (v + np.float32(0.0)).view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["negative", "positive", "mixed"])
+def test_min_keys_order_is_value_then_lowest_row(rng, kind):
+    """Sorting the keys sorts by (value, row), -0.0 equal to +0.0; so the
+    minimum key is the first row of the minimum value."""
+    v = _key_values(rng, kind)
+    rows = rng.permutation(v.size)
+    keys = bm.pack_min_keys(_t(v), _t(rows))
+    np.testing.assert_array_equal(torch.argsort(keys).numpy(),
+                                  np.lexsort((rows, v)))
+    lo = v == v.min()
+    assert int(bm.unpack_min_keys(keys.min())[1]) == rows[lo].min()
+
+
+@pytest.mark.parametrize("splits", [(64,), (64, 192), (128, 320, 448),
+                                    (64, 128, 192, 256, 384)])
+def test_min_key_merge_over_bank_splits_matches_the_strict_scan(rng, splits):
+    """Each split of the bank rows (a bank tile of the kernel) gives its
+    own (min, first argmin); the minimum of the packed keys over the
+    splits equals the plain version's chunked strict-'<' scan, ties
+    planted across every split boundary included.  Integer-valued operands
+    keep every float32 sum exact, so ties are exact."""
+    nb, d = 512, 64
+    q = rng.integers(-3, 4, (90, d)).astype(np.float32)
+    bank = rng.integers(-3, 4, (nb, d)).astype(np.float32)
+    for j, s in enumerate(splits):
+        bank[s:s + 2] = bank[s - 2:s]             # equal rows either side
+        q[2 * j] = bank[s - 1]                    # exact ties at distance 0
+        q[2 * j + 1] = bank[s - 2] + 1.0          # ties away from zero
+    qb, bb = _t(q).to(torch.bfloat16), _t(bank).to(torch.bfloat16)
+    bnorm = torch.sum(_t(bank) ** 2, 1)
+    want_v, want_i = bm._bank_min_plain(qb, bb, bnorm, chunk=96)
+    keys = torch.full((q.shape[0],), torch.iinfo(torch.int64).max)
+    for lo, hi in zip((0,) + splits, splits + (nb,)):
+        v, i = bm._bank_min_plain(qb, bb[lo:hi], bnorm[lo:hi])
+        keys = torch.minimum(keys, bm.pack_min_keys(v, i + lo))
+    got_v, got_i = bm.unpack_min_keys(keys)
+    np.testing.assert_array_equal(got_i.numpy(), want_i.numpy())
+    np.testing.assert_array_equal(got_v.numpy(), want_v.numpy())
+    for j, s in enumerate(splits):
+        assert int(got_i[2 * j]) <= s - 1          # never the later copy
+
+
 # ------------------------------------------------------ int8 bank min ---
 
 def test_quantize_rows_matches_jax(rng):
@@ -279,6 +353,70 @@ def test_fused_attention_plain_matches_pallas_kernel(rng, n, dtype):
     else:
         np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-3)
         assert np.mean(got != want) < 0.05
+
+
+def _flash_bf16_kernel_arithmetic(q, k, v, scale):
+    """The bfloat16 CUDA kernel's arithmetic (csrc/flash_attn.cu), on the
+    CPU: q scaled and rounded to bfloat16; float32 scores; pass 1 folds
+    64-key tiles into a running max m and sum l per row, each of a row's
+    four threads over its own columns (key % 8 in {2 t, 2 t + 1}), with
+    exp(x) as 2^(x log2 e) on log2 e-prescaled scores, the four combined
+    after the last tile; pass 2 forms p = 2^(s log2 e - m log2 e) * (1/l)
+    with one reciprocal per row, rounds p to bfloat16, and sums p.v in
+    float32.  FMAs are taken in float64 and rounded once; ex2.approx as
+    the exact power of two rounded to float32."""
+    f32 = torch.float32
+
+    def fma(a, b, c):
+        return (a.double() * b + c.double()).to(f32)
+
+    def ex2(x):
+        return torch.exp2(x.double()).to(f32)
+
+    log2e = float(np.float32(1.4426950408889634))
+    n = q.shape[1]
+    qs = (q.float() * float(torch.tensor(scale, dtype=torch.bfloat16)))
+    s = torch.einsum("bnhd,bmhd->bhnm", qs.to(torch.bfloat16).float(), k.float())
+    lane = (torch.arange(n) % 8) // 2
+    m = torch.full(s.shape[:3] + (4,), -np.inf, dtype=f32)
+    l = torch.zeros(s.shape[:3] + (4,), dtype=f32)
+    for k0 in range(0, n, 64):
+        tile = s[..., k0:k0 + 64]
+        for t in range(4):
+            st = tile[..., lane[k0:k0 + 64] == t]
+            if st.shape[-1] == 0:
+                continue
+            mn = torch.maximum(m[..., t], st.amax(-1))
+            mnl = torch.where(mn == -np.inf, 0.0, mn * log2e)
+            total = ex2(fma(st, log2e, -mnl[..., None])).sum(-1)
+            l[..., t] = fma(l[..., t], ex2(fma(m[..., t], log2e, -mnl)), total)
+            m[..., t] = mn
+    mx = m.amax(-1)
+    lt = (l * ex2((m - mx[..., None]) * log2e)).sum(-1)
+    p = ex2(fma(s, log2e, -(mx * log2e)[..., None])) * (1.0 / lt)[..., None]
+    o = torch.einsum("bhnm,bmhd->bnhd", p.to(torch.bfloat16).float(), v.float())
+    return o.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [64, 135, 257])
+def test_flash_kernel_arithmetic_matches_plain_and_pallas(rng, n):
+    """The CUDA kernel's bfloat16 arithmetic (online tiles, exp2 on
+    prescaled scores, one reciprocal per row) moves p by float32 ulps
+    before its bfloat16 rounding, so it stays within chip_smoke.py's
+    FLASH_TOL of the plain version and of the JAX kernel (interpret mode).
+    n covers a ragged last tile of 64 keys and of 128 queries."""
+    from chip_smoke import FLASH_TOL
+    from cmdiad_tpu_torch.ops.flash_attn import _fused_attention_plain
+    b, h, d = 2, 2, 64
+    x = [rng.normal(size=(b, n, h, d)).astype(np.float32) for _ in range(3)]
+    tq, tk, tv = (_t(a).to(torch.bfloat16) for a in x)
+    got = _flash_bf16_kernel_arithmetic(tq, tk, tv, d ** -0.5).float().numpy()
+    rtol, atol = FLASH_TOL["bfloat16"]
+    plain = _fused_attention_plain(tq, tk, tv, d ** -0.5).float().numpy()
+    np.testing.assert_allclose(got, plain, rtol=rtol, atol=atol)
+    assert np.mean(got != plain) < 0.05
+    pallas = _flash_pallas(*[jnp.asarray(a, jnp.bfloat16) for a in x], d ** -0.5)
+    np.testing.assert_allclose(got, pallas, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
