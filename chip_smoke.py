@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -78,6 +79,30 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, the graph replayed between CUDA events.  The host's cost of a
+    launch, which decides the eager time of a call of a few tens of
+    microseconds on a shared host, drops out."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
 
 
 def _bound(ops: float, peak_ops: float, nbytes: float, sfu_ops: float = 0.0):
@@ -156,20 +181,35 @@ def check_fps(rng, dev, batch=8, capacity=32768, groups=1024):
         [host_compact_points(pc[i], capacity) for i in range(batch)])).to(dev)
     mask = nonzero_point_mask(pts)
     ki = fps._fps_cuda(pts, mask, groups)
+    ki2 = fps._fps_cuda(pts, mask, groups)
     pi = fps._fps_plain(pts, mask, groups)
     torch.cuda.synchronize()
     # exact: both compute ((dx*dx + dy*dy) + dz*dz) without FMA
     n_diff = int((ki != pi).sum())
     assert n_diff == 0, f"FPS indices differ in {n_diff} places"
-    ms = _time_ms(lambda: fps._fps_cuda(pts, mask, groups), 3)
+    assert torch.equal(ki, ki2), "two FPS launches differ"
+    ms = _time_ms(lambda: fps._fps_cuda(pts, mask, groups), 5)
+    # both cluster sizes, forced, three readings each, interleaved: where
+    # the card's choice is 16 it must beat 8 by more than the spread
+    sizes = {8: [], 16: []}
+    for c in sizes:
+        assert torch.equal(fps._fps_cuda(pts, mask, groups, clusters=c), pi), c
+    for _ in range(3):
+        for c in sizes:
+            sizes[c].append(_time_ms(
+                lambda: fps._fps_cuda(pts, mask, groups, clusters=c), 5))
     plain_ms = _time_ms(lambda: fps._fps_plain(pts, mask, groups), 1)
     n_valid = float(mask.sum())
     ops = 9.0 * groups * n_valid          # 3 sub, 3 mul, 2 add, 1 min
     nbytes = batch * capacity * (12 + 1) + batch * groups * 4
     bound_ms, bound_by = _bound(ops, PEAK_FP32_NO_FMA, nbytes)
     print(f"fps B={batch} P={capacity} G={groups} ({int(n_valid)} valid): "
-          f"indices identical; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+          f"indices identical, two launches identical; cluster of "
+          f"{fps.cluster_size(batch, capacity)} CTAs per set; kernel {ms:.3f} ms "
+          f"({1e3 * ms / groups:.3f} us per step), plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); forced clusters of 8 "
+          f"{min(sizes[8]):.3f}-{max(sizes[8]):.3f} ms, of 16 "
+          f"{min(sizes[16]):.3f}-{max(sizes[16]):.3f} ms (three readings each)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -291,16 +331,22 @@ def check_flash(rng, dev, dtype: str, n: int, heads: int, batch: int = 8,
                 bound_by=bound_by, library_ms=library_ms)
 
 
-# the JAX probe's two shapes, then one large enough (8192 x 8192 outputs,
-# 4096 blocks) that the rates and not one block's latency decide the ratio
-PROBE_SHAPES = ((128, 256, 128), (1024, 768, 2048), (8192, 768, 8192))
+# the JAX probe's two shapes, one whose M and N are not multiples of the
+# kernel's 128 x 256 tile, and one large enough (8192 x 8192 outputs) that
+# the rates and not one tile's latency decide the ratio
+PROBE_SHAPES = ((128, 256, 128), (192, 256, 320), (1024, 768, 2048),
+                (8192, 768, 8192))
+ROW_SHAPE = (1024, 768, 2048)   # the kernels line's int8 row
 
 
 def phase_probe(rng, dev):
     """The int8-vs-bf16 tensor-core probe: one product per shape and type,
     launches counted around those calls alone, then each checked against
-    its plain version (int8 exact, bf16 to float32 summation order) and
-    timed."""
+    its plain version (int8 exact, bf16 to float32 summation order), run
+    once more (identical output) and timed against the PyTorch call that
+    computes the same function, eagerly (the kernels line's times; the
+    host's cost of a call decides them at the small shapes) and in CUDA
+    graphs (device time), both printed."""
     import torch
     from cmdiad_tpu_torch import kernels
     from cmdiad_tpu_torch.ops import int8_dot as i8
@@ -313,40 +359,65 @@ def phase_probe(rng, dev):
     outs = [i8.int8_dot(a, b) for a, b in ops_in]
     torch.cuda.synchronize()
     launches = kernels.LAUNCHES["int8_dot"]
-    res, times = None, {}
+    res, times, lib_times = None, {}, {}
     for (a, b), out in zip(ops_in, outs):
         m, k = a.shape
         n = b.shape[0]
         want = i8._int8_dot_plain(a, b)
+        assert torch.equal(i8._int8_dot_cuda(a, b), out), "two launches differ"
         if a.dtype == torch.int8:
             assert torch.equal(out, want), "int8 probe product is not exact"
             err = 0.0
-            library_ms = _time_ms(lambda: torch._int_mm(a, b.t()), 20)
+            library = functools.partial(torch._int_mm, a, b.t())
+            label = "torch._int_mm"
             peak = PEAK_INT8
         else:
             err = float(torch.max(torch.abs(out - want)))
             # float32 sums of integers up to 127^2 * k: order-only rounding
             assert err <= 1e-6 * k * 127 * 127, err
-            library_ms = _time_ms(lambda: torch.matmul(a, b.t()), 20)
+            # float32 out from bfloat16 operands, as the kernel writes
+            library = functools.partial(torch.mm, a, b.t(),
+                                        out_dtype=torch.float32)
+            label = "torch.mm out_dtype=float32"
             peak = PEAK_BF16
-        ms = _time_ms(lambda: i8._int8_dot_cuda(a, b), 20)
+        kernel = functools.partial(i8._int8_dot_cuda, a, b)
+        eager_ms, eager_lib_ms = _time_ms(kernel, 20), _time_ms(library, 20)
+        ms, library_ms = _graph_ms(kernel, 20), _graph_ms(library, 20)
         plain_ms = _time_ms(lambda: i8._int8_dot_plain(a, b), 5)
         ops = 2.0 * m * n * k
         nbytes = (m + n) * k * a.element_size() + m * n * 4
         bound_ms, bound_by = _bound(ops, peak, nbytes)
         times[(m, k, n, str(a.dtype))] = ms
+        lib_times[(m, k, n, str(a.dtype))] = library_ms
         print(f"int8_dot {a.dtype} {m}x{k}x{n}: max abs err {err:.3e}; "
-              f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
-              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by})")
-        if a.dtype == torch.int8 and (m, k, n) == PROBE_SHAPES[1]:
-            res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+              f"eager kernel {eager_ms:.4f} ms, library {eager_lib_ms:.4f} ms "
+              f"({label}); in a CUDA graph kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOP/s), library {library_ms:.4f} ms; "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        if a.dtype == torch.int8 and (m, k, n) == ROW_SHAPE:
+            # the kernels line keeps the eager times, as every other row
+            # and the probe's earlier rows have them
+            res = dict(max_abs_err=err, ms=eager_ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=library_ms)
-    for m, k, n in PROBE_SHAPES[1:]:
-        ratio = times[(m, k, n, "torch.bfloat16")] / times[(m, k, n, "torch.int8")]
-        print(f"int8_dot: int8 is {ratio:.2f}x the bf16 speed at {m}x{k}x{n} "
-              f"under mma.sync")
+                       library_ms=eager_lib_ms)
+            # the host's share of an eager call: the C launcher alone
+            # (three tensor-map encodings and the launch), output allocated
+            # once, against the Python wrapper around it
+            fn = kernels.library("int8_dot").int8_dot_launch
+            stream = torch.cuda.current_stream().cuda_stream
+            c_out = torch.empty_like(out)
+            c_ms = _time_ms(lambda: fn(a.data_ptr(), b.data_ptr(),
+                                       c_out.data_ptr(), m, n, k, 1, stream), 20)
+            assert torch.equal(c_out, want)
+            print(f"int8_dot {a.dtype} {m}x{k}x{n}: eager C launcher alone "
+                  f"{c_ms:.4f} ms against {eager_ms:.4f} through the wrapper "
+                  f"and {ms:.4f} of device time")
+    for m, k, n in PROBE_SHAPES[2:]:
+        key_b, key_i = (m, k, n, "torch.bfloat16"), (m, k, n, "torch.int8")
+        print(f"int8_dot: int8 is {times[key_b] / times[key_i]:.2f}x the bf16 "
+              f"speed at {m}x{k}x{n} under wgmma (the library calls: "
+              f"{lib_times[key_b] / lib_times[key_i]:.2f}x; device times "
+              f"in CUDA graphs)")
     print(f"int8_dot: {launches} probe launches")
     return res, launches
 
@@ -389,6 +460,8 @@ def phase_kernels(dev):
     check_bank_min_int8(rng, dev, 8 * 3136, 8192)
     check_bank_min_int8(rng, dev, 8 * 784, 8192)
     res["fps"] = check_fps(rng, dev)
+    check_fps(rng, dev, batch=1)
+    check_fps(rng, dev, batch=3)
     res["interp"] = check_interp(rng, dev)
     # ViT-B/8 (785 tokens, 12 heads) and Point-MAE (1024 tokens, 6 heads)
     res["flash_attn"] = check_flash(rng, dev, "bfloat16", 785, 12)

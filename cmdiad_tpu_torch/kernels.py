@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface and loads through ``ctypes``.  The libraries land
 in ``_build/`` beside this file (git-ignored), keyed by a hash of the
-source and the flags, so an unchanged kernel is built once per checkout.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an unchanged
+kernel is built once per checkout.
 Every source is compiled by its own ``nvcc`` process, all started together,
 at the first launch of any kernel (or by ``build_all``).  Nothing is built
 or loaded at import time.
@@ -36,7 +37,7 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 #            selections match the plain versions exactly (the int8 bank-min
 #            rounds each operation with intrinsics instead).
 _KERNELS = {
-    "fps": ("fps_launch", (_P, _P, _I, _I, _I, _P), ("--fmad=false",)),
+    "fps": ("fps_launch", (_P, _P, _I, _I, _I, _I, _P), ("--fmad=false",)),
     "interp": ("three_nn_interp_launch",
                (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ("--fmad=false",)),
     "bank_min": ("bank_min_launch", (_P, _P, _P, _I, _I, _I, _P), ()),
@@ -70,8 +71,17 @@ def _target(name: str, ptxas_verbose: bool):
              "-fPIC", *_KERNELS[name][2]]
     if ptxas_verbose:
         flags.append("-Xptxas=-v")
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    return src, flags, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return src, flags, BUILD_DIR / f"lib{name}-{_digest(src, flags)}.so"
+
+
+def _digest(src: Path, flags) -> str:
+    """Hash of the source, every header in ``csrc/`` (a header edit must
+    rebuild the kernels that include it) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
 
 
 def build_all(ptxas_verbose: bool = False) -> Dict[str, str]:
@@ -111,13 +121,19 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, str]:
     return outputs
 
 
+def library(name: str) -> ctypes.CDLL:
+    """Kernel ``name``'s loaded library (built at first use), for the
+    entry points beside its launcher."""
+    if name not in _LIBS:
+        build_all()
+    return _LIBS[name]
+
+
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C launcher on the current CUDA stream.  The
     launcher returns ``cudaGetLastError()`` after the launch; a non-zero
     code raises here.  Counts the launch in ``LAUNCHES``."""
-    if name not in _LIBS:
-        build_all()
-    fn = getattr(_LIBS[name], _KERNELS[name][0])
+    fn = getattr(library(name), _KERNELS[name][0])
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, stream)
     if rc != 0:

@@ -8,7 +8,7 @@ design of the int8 bank-min.  ``int8_dot(a, b)`` computes a . b^T for a
 Both operands are K-contiguous, the layout the bank-min kernels read.  A
 CUDA tensor launches the kernel (``csrc/int8_dot.cu``), a CPU tensor runs
 ``_int8_dot_plain``.  Not on the detection path: ``chip_smoke.py`` drives
-it to measure the card's int8-to-bf16 ratio under mma.sync.
+it to measure the card's int8-to-bf16 ratio under wgmma.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import torch
 
 from cmdiad_tpu_torch import kernels
 
-# output tile and the K bytes staged per step (csrc/int8_dot.cu)
+# what the kernel's tiles need of M and N, and the K bytes staged per step
+# (csrc/int8_dot.cu)
 ROW_TILE = 64
 K_BYTES = 128
 

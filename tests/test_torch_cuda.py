@@ -62,6 +62,63 @@ def test_fps_kernel_matches_plain(dev, rng):
     assert bool((idx[1] == 0).all())
 
 
+def _fps_sets(rng, b, p, g):
+    """b sets of p points whose first four are, in turn: duplicated points
+    (exact distance ties), an all-invalid set, a set with fewer valid
+    points than the g centers, and the smoke's disc cloud compacted to p."""
+    from cmdiad_tpu_torch.ops.masked import host_compact_points
+    pts = rng.normal(size=(b, p, 3)).astype(np.float32)
+    pts[rng.random((b, p)) < 0.3] = 0.0
+    pts[0, p // 2:] = pts[0, :p - p // 2]            # every point twice
+    if b > 1:
+        pts[1, :, 2] = 0.0                           # none valid
+    if b > 2:
+        pts[2, g // 2:] = 0.0                        # g / 2 valid at most
+    if b > 3:
+        yy, xx = np.mgrid[0:224, 0:224]
+        disc = rng.normal(size=(224, 224, 3)).astype(np.float32) * 0.05
+        disc[((yy - 112) ** 2 + (xx - 112) ** 2) > 90 ** 2] = 0.0
+        pts[3] = host_compact_points(disc, p)
+    return torch.from_numpy(pts)
+
+
+@pytest.mark.parametrize("b", [1, 8, 9])
+def test_fps_cluster_kernel_matches_plain_at_full_size(dev, rng, b):
+    """Indices equal to the plain version's at the smoke's size (P 32768,
+    G 1024), ties, an all-invalid set and G > n_valid among the sets; two
+    launches give the same indices."""
+    p, g = 32768, 1024
+    pts = _fps_sets(rng, b, p, g).to(dev)
+    mask = nonzero_point_mask(pts)
+    got = fps._fps_cuda(pts, mask, g)
+    again = fps._fps_cuda(pts, mask, g)
+    want = fps._fps_plain(pts, mask, g)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert fps.cluster_size(b, p) in (8, 16)
+    if b > 1:
+        assert bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("clusters", [8, 16])
+@pytest.mark.parametrize("b,p", [(2, 40000), (2, fps.MAX_POINTS), (9, fps.MAX_POINTS)])
+def test_fps_kernel_matches_plain_above_32768_points(dev, rng, b, p, clusters):
+    """Both cluster sizes, chosen by the caller, past 32768 points, up to
+    MAX_POINTS: clusters of 8 hold 16 points a thread there, clusters of 16
+    hold 8 (at B 9 they do not all fit on the card at once).  Indices equal
+    the plain version's; two launches give the same indices."""
+    g = 512
+    pts = _fps_sets(rng, b, p, g).to(dev)
+    mask = nonzero_point_mask(pts)
+    got = fps._fps_cuda(pts, mask, g, clusters=clusters)
+    again = fps._fps_cuda(pts, mask, g, clusters=clusters)
+    want = fps._fps_plain(pts, mask, g)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert torch.equal(fps._fps_cuda(pts, mask, g), want)   # the card's choice
+    assert bool((got[1] == 0).all())
+
+
 def _interp_inputs(rng, dev, b=2, p=5000, g=256, d=96):
     pts = rng.normal(size=(b, p, 3)).astype(np.float32)
     pts[rng.random((b, p)) < 0.2] = 0.0
@@ -197,19 +254,24 @@ def test_flash_attn_kernel_matches_plain(dev, rng, dtype, n, b, h):
                        got)
 
 
-@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (1024, 768, 2048)])
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (1024, 768, 2048),
+                                   (192, 256, 320), (8192, 768, 8192)])
 def test_int8_dot_kernel_matches_plain(dev, rng, m, k, n):
+    """int8 exact, bfloat16 to float32 summation order, at tile-sized and
+    ragged (M, N not multiples of 128 x 256) shapes; two launches equal."""
     a = torch.from_numpy(rng.integers(-127, 127, (m, k)).astype(np.int8)).to(dev)
     b = torch.from_numpy(rng.integers(-127, 127, (n, k)).astype(np.int8)).to(dev)
     before = kernels.LAUNCHES["int8_dot"]
     got = i8.int8_dot(a, b)
     assert kernels.LAUNCHES["int8_dot"] == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, i8._int8_dot_plain(a, b))
+    assert torch.equal(i8.int8_dot(a, b), got)
     ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
     got = i8.int8_dot(ab, bb)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, i8._int8_dot_plain(ab, bb), rtol=1e-6,
                                atol=1e-6 * k * 127 * 127)
+    assert torch.equal(i8.int8_dot(ab, bb), got)
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -219,9 +281,12 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros((4, 192), device=dev)           # nor of 128 (int8)
     with pytest.raises(ValueError, match="width"):
         bm.bank_min_int8(q, torch.zeros((64, 192), device=dev))
-    pts = torch.ones((1, 60000, 3), device=dev)     # too many points for FPS
+    pts = torch.ones((1, fps.MAX_POINTS + 4464, 3), device=dev)  # 70000: too many
     with pytest.raises(ValueError, match="at most"):
         fps.farthest_point_sample(pts, nonzero_point_mask(pts), 4)
+    pts = torch.ones((1, 64, 3), device=dev)
+    with pytest.raises(ValueError, match="clusters of 8 or 16"):
+        fps._fps_cuda(pts, nonzero_point_mask(pts), 4, clusters=4)
     x = torch.zeros((1, 8, 2, 32), device=dev)      # head dim 32
     with pytest.raises(ValueError, match="head dim"):
         fa.fused_attention(x, x, x, 0.1, use_flash=True)

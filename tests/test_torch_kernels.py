@@ -59,6 +59,103 @@ def test_fps_plain_matches_pallas_and_jnp(rng):
     assert mask[0][got[0][: mask[0].sum()]].all()     # never an invalid point
 
 
+@pytest.mark.parametrize("case", ["all_invalid", "more_centers_than_valid",
+                                  "ragged_span"])
+def test_fps_plain_matches_pallas_and_jnp_edge_cases(rng, case):
+    """The cases the cluster kernel treats apart, equal on all three sides:
+    an all-invalid set (index 0 throughout), more centers than valid points
+    (indices repeat), and a P that is not a multiple of the kernel's CTA
+    span (512 threads x 2 points), nor of the TPU kernel's 128 lanes."""
+    p, g = {"all_invalid": (256, 24), "more_centers_than_valid": (256, 40),
+            "ragged_span": (1300, 32)}[case]
+    pts = rng.normal(size=(2, p, 3)).astype(np.float32)
+    if case == "all_invalid":
+        pts[0] = 0.0
+        pts[1, :, 0] = 0.0                      # nonzero rows, none valid
+    elif case == "more_centers_than_valid":
+        pts[:, 12:] = 0.0                       # 12 valid of 256
+        pts[1, 3] = pts[1, 7]                   # a duplicate: a tie at 0
+    else:
+        pts[rng.random((2, p)) < 0.3] = 0.0
+        pts[1, 1100:1110] = pts[1, 1200:1210]   # ties past the first span
+    mask = np.all(pts != 0, axis=-1)
+    want_k = np.asarray(_fps_batched_pallas(jnp.asarray(pts), jnp.asarray(mask), g))
+    want_j = np.asarray(jax.vmap(lambda q, m: _fps_single_jnp(q, m, g))(
+        jnp.asarray(pts), jnp.asarray(mask)))
+    got = fps._fps_plain(_t(pts), _t(mask), g).numpy()
+    np.testing.assert_array_equal(got, want_k)
+    np.testing.assert_array_equal(got, want_j)
+    if case == "all_invalid":
+        assert np.all(got == 0)
+    elif case == "more_centers_than_valid":
+        assert set(got[0].tolist()) == set(range(12))   # every valid point
+        assert np.all(mask[np.arange(2)[:, None], got])
+
+
+def _cluster_argmax(values, c, threads, k):
+    """The kernel's argmax (csrc/fps.cu) over rows of running distances:
+    each row padded to c CTAs x ``threads`` x ``k`` slots, thread t of CTA r
+    holding indices r*threads*k + t + threads*j (j = 0..k-1), scanned in
+    that order with a strict '>'; the thread's key (``ABSENT_KEY`` where it
+    holds no point) then maximised over the threads of a CTA and over the
+    CTAs."""
+    b, p = values.shape
+    span = threads * k
+    out = []
+    for row in values:
+        cta_keys = []
+        for r in range(c):
+            best = torch.full((threads,), fps.ABSENT_KEY)
+            bv = torch.full((threads,), -np.inf)
+            for j in range(k):
+                idx = r * span + torch.arange(threads) + threads * j
+                inside = idx < p
+                v = torch.where(inside, row[idx.clamp(max=p - 1)],
+                                torch.tensor(-np.inf))
+                take = inside & (v > bv)
+                bv = torch.where(take, v, bv)
+                best = torch.where(take, fps.pack_argmax_keys(v, idx), best)
+            cta_keys.append(best.max())
+        out.append(fps.unpack_argmax_index(torch.stack(cta_keys).max()))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("c,threads,k", [(8, 4, 2), (16, 4, 2), (8, 8, 4)])
+def test_argmax_keys_merge_over_cluster_ranks_matches_torch_argmax(
+        rng, c, threads, k):
+    """The key merge over threads and CTA ranks gives torch.argmax's first
+    occurrence: ties planted inside a thread, across threads and across
+    ranks, distance 0 ties, -1 (invalid) entries, an all-invalid row (index
+    0) and padding slots past P, which never win, not even against -1."""
+    span = threads * k
+    p = c * span - 5                                  # the last slots pad
+    v = rng.integers(0, 50, (6, p)).astype(np.float32)
+    v[rng.random((6, p)) < 0.3] = -1.0
+    v[1] = -1.0                                       # all invalid
+    v[2] = 0.0                                        # every point a tie
+    v[3, [3, 3 + threads, 3 + span, p - 1]] = 99.0    # thread, rank ties
+    v[4, :] = -1.0
+    v[4, [p - 1, 2 * span + 1]] = 7.0                 # tie in the last rank
+    v[5, :span] = -1.0                                # rank 0 holds no valid
+    t = _t(v)
+    np.testing.assert_array_equal(
+        _cluster_argmax(t, c, threads, k).numpy(), torch.argmax(t, 1).numpy())
+
+
+@pytest.mark.parametrize("kind", ["negative", "positive", "mixed"])
+def test_argmax_keys_order_is_value_then_lowest_index(rng, kind):
+    """Sorting the keys sorts by value, then by the lower index first (-0.0
+    equal to +0.0); every key lies above ``ABSENT_KEY``; the index comes
+    back."""
+    v = _key_values(rng, kind)
+    idx = rng.permutation(v.size)
+    keys = fps.pack_argmax_keys(_t(v), _t(idx))
+    np.testing.assert_array_equal(torch.argsort(keys).numpy(),
+                                  np.lexsort((-idx, v)))
+    assert bool((keys > fps.ABSENT_KEY).all())
+    np.testing.assert_array_equal(fps.unpack_argmax_index(keys).numpy(), idx)
+
+
 def test_fps_entry_point_gathers_centers(rng):
     pts = _point_sets(rng)
     centers, idx = fps.farthest_point_sample(_t(pts), _t(np.all(pts != 0, -1)), 16)
@@ -446,9 +543,11 @@ def test_einsum_attention_matches_jax_fallback(rng, dtype):
 
 # --------------------------------------------------------- int8 probe ---
 
-def test_int8_dot_plain_matches_the_probe_kernel(rng):
-    """The probe's Pallas kernel (interpret mode) on its small shape:
-    int8 exact, bfloat16 to float32 summation order."""
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (192, 256, 320)])
+def test_int8_dot_plain_matches_the_probe_kernel(rng, m, k, n):
+    """The probe's Pallas kernel (interpret mode) on its small shape and on
+    one whose M and N are not multiples of the CUDA kernel's 128 x 256
+    tile: int8 exact, bfloat16 to float32 summation order."""
     import functools
     import importlib.util
     from pathlib import Path
@@ -459,7 +558,6 @@ def test_int8_dot_plain_matches_the_probe_kernel(rng):
         Path(__file__).resolve().parents[1] / "benchmarks" / "probe_int8_dot.py")
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    m, k, n = 128, 256, 128
     a = rng.integers(-127, 127, (m, k)).astype(np.int8)
     b = rng.integers(-127, 127, (k, n)).astype(np.int8)
     for jdt, acc, tdt in ((jnp.int8, jnp.int32, torch.int8),
@@ -474,3 +572,22 @@ def test_int8_dot_plain_matches_the_probe_kernel(rng):
             np.testing.assert_array_equal(got, want)
         else:
             np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-2)
+
+
+def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library name changes with its source, its flags and any
+    header in csrc/ (a header edit must not load a stale library), and not
+    with another kernel's source."""
+    from cmdiad_tpu_torch import kernels
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    src, header, other = (tmp_path / n for n in ("a.cu", "h.cuh", "b.cu"))
+    src.write_text('#include "h.cuh"\n')
+    header.write_text("// v1\n")
+    other.write_text("// b\n")
+    base = kernels._digest(src, ["-O3"])
+    assert kernels._digest(src, ["-O3"]) == base
+    assert kernels._digest(src, ["-O2"]) != base
+    other.write_text("// b, edited\n")
+    assert kernels._digest(src, ["-O3"]) == base
+    header.write_text("// v2\n")
+    assert kernels._digest(src, ["-O3"]) != base
