@@ -215,6 +215,10 @@ def check_fps(rng, dev, batch=8, capacity=32768, groups=1024):
 
 
 def check_interp(rng, dev, batch=8, size=224, groups=1024, d=768):
+    """Both output types at the paths' size, each bit-identical to the
+    plain version and over two launches; returns the float32 row of the
+    kernels line (the default path's) and prints the bfloat16 one (the
+    throughput path's) with its own bound."""
     import torch
     from cmdiad_tpu_torch.ops import interpolate as ip
     from cmdiad_tpu_torch.ops.masked import nonzero_point_mask
@@ -230,32 +234,56 @@ def check_interp(rng, dev, batch=8, size=224, groups=1024, d=768):
     centers = torch.gather(pts, 1, cidx[..., None].expand(-1, -1, 3))
     feats = torch.from_numpy(rng.normal(size=(batch, groups, d)).astype(
         np.float32)).to(dev)
-    ko = ip._three_nn_cuda(pts, mask, centers, feats, False)
-    po = torch.cat([ip._three_nn_plain(pts[i:i + 1], mask[i:i + 1],
-                                       centers[i:i + 1], feats[i:i + 1], False)
-                    for i in range(batch)])
-    torch.cuda.synchronize()
-    # same selections and the same float32 operation order: equal up to
-    # the last bit of a 3-term weighted sum (5e-6 absolute on unit features)
-    err = float(torch.max(torch.abs(ko - po)))
-    assert err <= 5e-6, err
-    ms = _time_ms(lambda: ip._three_nn_cuda(pts, mask, centers, feats, False), 5)
-    plain_ms = _time_ms(lambda: [ip._three_nn_plain(
-        pts[i:i + 1], mask[i:i + 1], centers[i:i + 1], feats[i:i + 1], False)
-        for i in range(batch)], 1)
-    n_valid = float(mask.sum())
-    ops = 9.0 * groups * n_valid + 5.0 * n_valid * d
-    p = size * size
-    nbytes = batch * (p * 13 + groups * 12 + groups * d * 4 + p * d * 4)
-    bound_ms, bound_by = _bound(ops, PEAK_FP32_NO_FMA, nbytes)
-    print(f"interp B={batch} P={p} G={groups} D={d}: max abs err {err:.3e}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    print("interp schedule: blocks of 128 points, eight a SM; the first "
+          "warps search the valid points, one a lane, while the others write "
+          "the masked points' zero rows; then every warp writes valid rows, "
+          "keeping the last centers' feature pieces")
+    res = {}
+    for bf16 in (False, True):
+        ko = ip._three_nn_cuda(pts, mask, centers, feats, bf16)
+        ko2 = ip._three_nn_cuda(pts, mask, centers, feats, bf16)
+        po = torch.cat([ip._three_nn_plain(pts[i:i + 1], mask[i:i + 1],
+                                           centers[i:i + 1], feats[i:i + 1], bf16)
+                        for i in range(batch)])
+        torch.cuda.synchronize()
+        # the same selections and float32 operations in the same order:
+        # every bit equal, also between two launches
+        bits = torch.int16 if bf16 else torch.int32
+        n_diff = int((ko.view(bits) != po.view(bits)).sum())
+        assert n_diff == 0, f"interp {ko.dtype}: {n_diff} values differ"
+        assert torch.equal(ko.view(bits), ko2.view(bits)), "two launches differ"
+        ms = _time_ms(lambda: ip._three_nn_cuda(pts, mask, centers, feats, bf16), 5)
+        # the search alone (nothing written) and the writer alone (every
+        # point written as masked: the output stream with no gather)
+        search_ms, write_ms = (_time_ms(functools.partial(
+            ip._three_nn_cuda, pts, mask, centers, feats, bf16, phases=ph), 5)
+            for ph in (1, 2))
+        plain_ms = _time_ms(lambda: [ip._three_nn_plain(
+            pts[i:i + 1], mask[i:i + 1], centers[i:i + 1], feats[i:i + 1], bf16)
+            for i in range(batch)], 1)
+        n_valid = float(mask.sum())
+        ops = 9.0 * groups * n_valid + 5.0 * n_valid * d
+        p = size * size
+        nbytes = batch * (p * 13 + groups * 12 + groups * d * 4
+                          + p * d * ko.element_size())
+        bound_ms, bound_by = _bound(ops, PEAK_FP32_NO_FMA, nbytes)
+        print(f"interp {ko.dtype} B={batch} P={p} G={groups} D={d} "
+              f"({int(n_valid)} valid): bit-identical to the plain version, two "
+              f"launches identical; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, output "
+              f"{ko.element_size()} bytes a value), "
+              f"{bound_ms / ms * 100:.1f} % of the bound; search alone "
+              f"{search_ms:.3f} ms, zeros written alone {write_ms:.3f} ms")
+        res[bf16] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return res[False]
 
 
-def check_bank_min_int8(rng, dev, nq: int, nb: int, d: int = 768):
+def check_bank_min_int8(rng, dev, nq: int, nb: int, d: int = 768,
+                        noload: bool = False):
+    """Indices and raw values bit-identical to the plain version, and over
+    two launches; with ``noload``, also the kernel timed on stages loaded
+    once (its timing aid)."""
     import torch
     from cmdiad_tpu_torch.ops import bank_min as bm
     q = torch.from_numpy(rng.normal(size=(nq, d)).astype(np.float32)).to(dev)
@@ -265,22 +293,34 @@ def check_bank_min_int8(rng, dev, nq: int, nb: int, d: int = 768):
     bnorm = torch.sum(bank * bank, dim=1).contiguous()
     kv, ki = bm._bank_min_int8_cuda(q8, qs, b8, bs, bnorm)
     pv, pi = bm._bank_min_int8_plain(q8, qs, b8, bs, bnorm)
+    # CTAs publish their tiles' minima with atomics in no fixed order; the
+    # packed (value, row) keys make the result independent of that order
+    kv2, ki2 = bm._bank_min_int8_cuda(q8, qs, b8, bs, bnorm)
     torch.cuda.synchronize()
+    assert torch.equal(ki, ki2) and torch.equal(
+        kv.view(torch.int32), kv2.view(torch.int32)), "two launches differ"
     # exact: the s8 product is exact on both sides and the dequantise and
     # subtract steps are rounded one by one in the same order
     n_idx = int((ki != pi).sum())
     n_val = int((kv != pv).sum())
     assert n_idx == 0 and n_val == 0, (n_idx, n_val)
-    ms = _time_ms(lambda: bm._bank_min_int8_cuda(q8, qs, b8, bs, bnorm), 5)
+    run = functools.partial(bm._bank_min_int8_cuda, q8, qs, b8, bs, bnorm)
+    ms = _time_ms(run, 5)
     plain_ms = _time_ms(lambda: bm._bank_min_int8_plain(q8, qs, b8, bs, bnorm), 3)
     library_ms = _time_ms(lambda: torch.cdist(q, bank).min(1), 3)
     ops = 2.0 * nq * nb * d
     nbytes = nq * d + nb * d + nb * 8 + nq * 4 + nq * 8
     bound_ms, bound_by = _bound(ops, PEAK_INT8, nbytes)
     print(f"bank_min_int8 nq={nq} nb={nb} d={d}: indices and raw values "
-          f"identical on all {nq} queries; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, cdist+min {library_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), {ops / ms / 1e9:.1f} TOP/s")
+          f"identical on all {nq} queries, two launches identical; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, cdist+min {library_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {ops / ms / 1e9:.1f} TOP/s")
+    if noload:
+        # the main loop and fold with no load to wait for (wrong results)
+        t = [_time_ms(functools.partial(run, reload=False), 5) for _ in range(3)]
+        print(f"bank_min_int8 nq={nq} nb={nb}: on stages loaded once "
+              f"{min(t):.3f}-{max(t):.3f} ms (three readings; the loads' "
+              f"share of the time)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -455,7 +495,11 @@ def phase_kernels(dev):
     # the banks of phase 3 (16 train samples, f_coreset 0.1) pad to 8192
     check_bank_min(rng, dev, 8 * 3136, 8192)
     check_bank_min(rng, dev, 8 * 784, 8192)
-    res["bank_min_int8"] = check_bank_min_int8(rng, dev, 8 * 3136, 65536)
+    print("bank_min_int8 schedule: 128 x 256 tiles, a 4-stage TMA ring of "
+          "128-byte stages, two consumer warpgroups folding together (no "
+          "ping-pong)")
+    res["bank_min_int8"] = check_bank_min_int8(rng, dev, 8 * 3136, 65536,
+                                               noload=True)
     check_bank_min_int8(rng, dev, 8 * 784, 16384)
     check_bank_min_int8(rng, dev, 8 * 3136, 8192)
     check_bank_min_int8(rng, dev, 8 * 784, 8192)

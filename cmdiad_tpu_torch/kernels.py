@@ -39,10 +39,11 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 _KERNELS = {
     "fps": ("fps_launch", (_P, _P, _I, _I, _I, _I, _P), ("--fmad=false",)),
     "interp": ("three_nn_interp_launch",
-               (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ("--fmad=false",)),
+               (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I),
+               ("--fmad=false",)),
     "bank_min": ("bank_min_launch", (_P, _P, _P, _I, _I, _I, _P), ()),
     "bank_min_int8": ("bank_min_int8_launch",
-                      (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P), ()),
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I), ()),
     "flash_attn": ("flash_attn_launch",
                    (_P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _I), ()),
     "int8_dot": ("int8_dot_launch", (_P, _P, _P, _I, _I, _I, _I), ()),

@@ -56,8 +56,9 @@ def pack_min_keys(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(value float32, row) -> int64 keys whose signed order is the
     lexicographic (value, row) order: the float's bits, magnitude flipped
     for negative values, above the row (0 <= row < 2^31).  -0.0 packs as
-    +0.0, which a strict '<' does not tell apart.  The bf16 kernel
-    publishes these keys with atomicMin (csrc/bank_min.cu:min_key)."""
+    +0.0, which a strict '<' does not tell apart.  Both kernels publish
+    these keys with atomicMin (``min_key`` in csrc/bank_min.cu and
+    csrc/bank_min_int8.cu)."""
     bits = (v.to(torch.float32) + 0.0).view(torch.int32)
     ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     return (ordered.to(torch.int64) << 32) | idx.to(torch.int64)
@@ -125,7 +126,10 @@ def _bank_min_int8_plain(q_s8: torch.Tensor, qscale: torch.Tensor,
 
 def _bank_min_int8_cuda(q_s8: torch.Tensor, qscale: torch.Tensor,
                         bank_s8: torch.Tensor, bscale: torch.Tensor,
-                        bnorm: torch.Tensor):
+                        bnorm: torch.Tensor, reload: bool = True):
+    """The kernel.  ``reload=False`` is a timing aid with wrong results:
+    the main loop runs on stages loaded once, so the time has no load to
+    wait for."""
     n, d = q_s8.shape
     nb = bank_s8.shape[0]
     if nb % ROW_TILE or d % COL_TILE_INT8:
@@ -136,12 +140,15 @@ def _bank_min_int8_cuda(q_s8: torch.Tensor, qscale: torch.Tensor,
     kernels.check_cuda_tensor(bank_s8, "bank", torch.int8, (nb, d))
     kernels.check_cuda_tensor(bscale, "bank scales", torch.float32, (nb,))
     kernels.check_cuda_tensor(bnorm, "bank norms", torch.float32, (nb,))
-    out_v = torch.empty((n,), dtype=torch.float32, device=q_s8.device)
-    out_i = torch.empty((n,), dtype=torch.int32, device=q_s8.device)
+    # the launcher fills the keys, runs the kernel and unpacks the keys
+    keys = torch.empty((n,), dtype=torch.int64, device=q_s8.device)
+    value = torch.empty((n,), dtype=torch.float32, device=q_s8.device)
+    row = torch.empty((n,), dtype=torch.int64, device=q_s8.device)
     kernels.launch("bank_min_int8", q_s8.data_ptr(), qscale.data_ptr(),
                    bank_s8.data_ptr(), bscale.data_ptr(), bnorm.data_ptr(),
-                   n, nb, d, out_v.data_ptr(), out_i.data_ptr())
-    return out_v, out_i.to(torch.int64)
+                   n, nb, d, keys.data_ptr(), value.data_ptr(), row.data_ptr(),
+                   int(reload))
+    return value, row
 
 
 def exact_refine(patch: torch.Tensor, bank: torch.Tensor,

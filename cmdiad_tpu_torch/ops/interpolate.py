@@ -20,6 +20,10 @@ import torch
 
 from cmdiad_tpu_torch import kernels
 
+# the kernel writes 16 bytes a lane (4 float32 or 8 bfloat16 values), so
+# the feature width must be a multiple of 8 (csrc/interp.cu)
+WIDTH_TILE = 8
+
 
 def _sqnorm3(x: torch.Tensor) -> torch.Tensor:
     return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2]
@@ -55,11 +59,16 @@ def _three_nn_plain(points, mask, centers, feats, bf16: bool):
     return out.to(torch.bfloat16) if bf16 else out
 
 
-def _three_nn_cuda(points, mask, centers, feats, bf16: bool):
+def _three_nn_cuda(points, mask, centers, feats, bf16: bool, phases: int = 3):
+    """The kernel; ``phases`` 1 or 2 runs only its search or only its
+    writer (every point written as masked), to time the two apart."""
     b, p, _ = points.shape
     g, d = centers.shape[1], feats.shape[2]
     if g < 3:
         raise ValueError(f"3-NN interpolation needs at least 3 centers, got {g}")
+    if d % WIDTH_TILE:
+        raise ValueError(f"3-NN interpolation kernel needs a feature width "
+                         f"% {WIDTH_TILE} == 0, got {d}")
     pts = points.to(torch.float32).contiguous()
     m = mask.to(torch.uint8).contiguous()
     c = centers.to(torch.float32).contiguous()
@@ -70,8 +79,12 @@ def _three_nn_cuda(points, mask, centers, feats, bf16: bool):
     kernels.check_cuda_tensor(f, "feats", torch.float32, (b, g, d))
     out = torch.empty((b, p, d), device=points.device,
                       dtype=torch.bfloat16 if bf16 else torch.float32)
+    # the bfloat16 mode's rounded feature rows, written by the launcher
+    scratch = torch.empty((b, g, d), device=points.device,
+                          dtype=torch.bfloat16) if bf16 else None
     kernels.launch("interp", pts.data_ptr(), m.data_ptr(), c.data_ptr(),
-                   f.data_ptr(), b, p, g, d, int(bf16), out.data_ptr())
+                   f.data_ptr(), scratch.data_ptr() if bf16 else None,
+                   b, p, g, d, int(bf16), out.data_ptr(), phases)
     return out
 
 

@@ -217,6 +217,88 @@ def test_bank_min_int8_kernel_matches_plain_bit_for_bit(dev, rng):
     torch.testing.assert_close(val.double(), exact, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("nq,nb", [(129, 64), (300, 320), (1000, 4160)])
+def test_bank_min_int8_kernel_ties_and_ragged_tiles(dev, rng, nq, nb):
+    """Query counts off the 128-query tile and bank rows (64 k) off the
+    256-row tile.  Scales that are powers of two keep every dequantised
+    value exact, so ties are exact: equal rows on both sides of each
+    256-row tile boundary and in the first and last rows, queries equal to
+    such rows (negative values: |b|^2 - 2 b.b), an all-zero query (the
+    values are the norms, +0.0 at row 3 and -0.0 at row 5) and far padding
+    rows that never win.  Indices and raw values equal the plain version's
+    and two launches agree bit for bit."""
+    d = 256
+    q8 = rng.integers(-3, 4, (nq, d)).astype(np.int8)
+    b8 = rng.integers(-3, 4, (nb, d)).astype(np.int8)
+    for edge in range(256, nb, 256):
+        b8[edge] = b8[edge - 1]                     # a tie across tiles
+    b8[nb - 1] = b8[0]
+    q8[0] = b8[0]
+    q8[2] = b8[min(255, nb - 1)]
+    q8[1] = 0
+    b8[3] = b8[5] = 0
+    pad = nb - nb // 8
+    b8[pad:] = 127                                  # bank padding rows
+    bscale = np.full(nb, 0.25, np.float32)
+    bf = b8.astype(np.float32) * bscale[:, None]
+    bnorm = (bf * bf).sum(1).astype(np.float32)
+    bnorm[pad:] = 1e12
+    bnorm[5] = -0.0
+    qscale = np.full(nq, 0.25, np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (q8, qscale, b8, bscale, bnorm)]
+    pv, pi = bm._bank_min_int8_plain(*args)
+    before = kernels.LAUNCHES["bank_min_int8"]
+    kv, ki = bm._bank_min_int8_cuda(*args)
+    kv2, ki2 = bm._bank_min_int8_cuda(*args)
+    assert kernels.LAUNCHES["bank_min_int8"] == before + 2
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.equal(ki, ki2) and torch.equal(kv.view(torch.int32),
+                                                kv2.view(torch.int32))
+    assert int(ki[0]) == 0 and float(kv[0]) < 0
+    assert int(ki[1]) == 3 and float(kv[1]) == 0.0
+    assert bool((ki < pad).all())
+
+
+def _interp_case(rng, dev, b, p, g, d, empty_tile=False):
+    """Disc-like clouds: a fifth of the points masked, centers drawn from
+    the valid points (coincident pairs), optionally a whole 256-point tile
+    with no valid point, and a run of duplicated points (exact ties)."""
+    pts = rng.normal(size=(b, p, 3)).astype(np.float32)
+    pts[rng.random((b, p)) < 0.2] = 0.0
+    if empty_tile:
+        pts[:, 256:512] = 0.0
+    pts[:, 600:610] = pts[:, 700:710]
+    mask = np.all(pts != 0, -1)
+    cidx = np.stack([rng.choice(np.flatnonzero(mask[i]), g, replace=False)
+                     for i in range(b)])
+    centers = np.take_along_axis(pts, cidx[..., None], 1)
+    feats = rng.normal(size=(b, g, d)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (pts, mask, centers, feats)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,p,g,d,empty_tile", [
+    (2, 1000, 3, 96, False),          # P off the tile, the fewest centers
+    (2, 2600, 1024, 136, True),       # a tile with no valid point, D off 128
+    (2, 50176, 1024, 768, False),     # the paths' full width
+])
+def test_interp_kernel_is_bit_identical_to_plain(dev, rng, dtype, b, p, g, d,
+                                                 empty_tile):
+    """Every output bit equal to the plain version's, in both output types,
+    and over two launches."""
+    pts, mask, centers, feats = _interp_case(rng, dev, b, p, g, d, empty_tile)
+    bf16 = dtype == "bfloat16"
+    want = ip._three_nn_plain(pts, mask, centers, feats, bf16)
+    bits = torch.int16 if bf16 else torch.int32
+    got = ip._three_nn_cuda(pts, mask, centers, feats, bf16)
+    again = ip._three_nn_cuda(pts, mask, centers, feats, bf16)
+    assert got.dtype == want.dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(got.view(bits), again.view(bits))
+    if empty_tile:
+        assert bool((got[:, 256:512] == 0).all())
+
+
 def _qkv(rng, dev, dtype, b=2, n=135, h=3):
     """q, k, v as the backbones hand them over: strided views of one
     (B, N, 3, H, 64) projection."""
@@ -297,6 +379,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
                     dtype=torch.bfloat16)                # K no longer fits
     with pytest.raises(ValueError, match="at most"):
         fa.fused_attention(x, x, x, 0.1, use_flash=True)
+    pts = torch.ones((1, 16, 3), device=dev)        # feature width 12
+    with pytest.raises(ValueError, match="width"):
+        ip.three_nn_interpolate(pts, nonzero_point_mask(pts), pts[:, :4],
+                                torch.zeros((1, 4, 12), device=dev))
     a = torch.zeros((100, 128), device=dev, dtype=torch.int8)
     with pytest.raises(ValueError, match="% 64"):
         i8.int8_dot(a, torch.zeros((64, 128), device=dev, dtype=torch.int8))

@@ -325,33 +325,59 @@ def test_min_keys_order_is_value_then_lowest_row(rng, kind):
     assert int(bm.unpack_min_keys(keys.min())[1]) == rows[lo].min()
 
 
-@pytest.mark.parametrize("splits", [(64,), (64, 192), (128, 320, 448),
-                                    (64, 128, 192, 256, 384)])
-def test_min_key_merge_over_bank_splits_matches_the_strict_scan(rng, splits):
-    """Each split of the bank rows (a bank tile of the kernel) gives its
-    own (min, first argmin); the minimum of the packed keys over the
-    splits equals the plain version's chunked strict-'<' scan, ties
-    planted across every split boundary included.  Integer-valued operands
-    keep every float32 sum exact, so ties are exact."""
-    nb, d = 512, 64
+def _split_scan_inputs(rng, mode, splits, nb=512, d=64):
+    """Operands of either mode whose products are exact, so ties are exact:
+    integer-valued bfloat16 rows, or int8 rows with power-of-two scales.
+    Equal rows on both sides of every split, queries equal to the row before
+    a split (zero distance: negative raw values |b|^2 - 2 b.b) and one row
+    off it.  Returns the plain version over a row range and the arguments."""
     q = rng.integers(-3, 4, (90, d)).astype(np.float32)
     bank = rng.integers(-3, 4, (nb, d)).astype(np.float32)
     for j, s in enumerate(splits):
         bank[s:s + 2] = bank[s - 2:s]             # equal rows either side
         q[2 * j] = bank[s - 1]                    # exact ties at distance 0
         q[2 * j + 1] = bank[s - 2] + 1.0          # ties away from zero
-    qb, bb = _t(q).to(torch.bfloat16), _t(bank).to(torch.bfloat16)
-    bnorm = torch.sum(_t(bank) ** 2, 1)
-    want_v, want_i = bm._bank_min_plain(qb, bb, bnorm, chunk=96)
-    keys = torch.full((q.shape[0],), torch.iinfo(torch.int64).max)
+    if mode == "bf16":
+        qb, bb = _t(q).to(torch.bfloat16), _t(bank).to(torch.bfloat16)
+        bnorm = torch.sum(_t(bank) ** 2, 1)
+
+        def plain(lo, hi, chunk=8192):
+            return bm._bank_min_plain(qb, bb[lo:hi], bnorm[lo:hi], chunk=chunk)
+    else:
+        q8, b8 = _t(q).to(torch.int8), _t(bank).to(torch.int8)
+        qs = torch.full((q.shape[0],), 0.5)
+        bs = torch.full((nb,), 0.5)
+        bnorm = torch.sum((_t(bank) * 0.5) ** 2, 1)
+
+        def plain(lo, hi, chunk=8192):
+            return bm._bank_min_int8_plain(q8, qs, b8[lo:hi], bs[lo:hi],
+                                           bnorm[lo:hi], chunk=chunk)
+    return plain
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [(64,), (64, 192), (128, 320, 448),
+                                    (64, 128, 192, 256, 384)])
+def test_min_key_merge_over_bank_splits_matches_the_strict_scan(rng, splits,
+                                                                mode):
+    """Each split of the bank rows (a bank tile of either kernel) gives its
+    own (min, first argmin); the minimum of the packed keys over the
+    splits equals the plain version's chunked strict-'<' scan, ties
+    planted across every split boundary and negative values included."""
+    nb = 512
+    plain = _split_scan_inputs(rng, mode, splits, nb)
+    want_v, want_i = plain(0, nb, chunk=96)
+    keys = torch.full((want_v.shape[0],), torch.iinfo(torch.int64).max)
     for lo, hi in zip((0,) + splits, splits + (nb,)):
-        v, i = bm._bank_min_plain(qb, bb[lo:hi], bnorm[lo:hi])
+        v, i = plain(lo, hi)
         keys = torch.minimum(keys, bm.pack_min_keys(v, i + lo))
     got_v, got_i = bm.unpack_min_keys(keys)
     np.testing.assert_array_equal(got_i.numpy(), want_i.numpy())
     np.testing.assert_array_equal(got_v.numpy(), want_v.numpy())
     for j, s in enumerate(splits):
         assert int(got_i[2 * j]) <= s - 1          # never the later copy
+    if mode == "int8":
+        assert float(got_v.min()) < 0              # negative raw values
 
 
 # ------------------------------------------------------ int8 bank min ---
