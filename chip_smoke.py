@@ -22,7 +22,18 @@ Phases:
                    path's within the JAX package's own envelopes.
      Each path's fitted state is then served on the CPU with the plain
      versions and the predictions compared, every bank row the two devices
-     choose differently held to the quantised product's error envelope.
+     choose differently held to the quantised product's error envelope;
+  4. detect from disk, at the same width: a fixture of two classes at
+     MVTec 3D-AD's raw scan sizes (800² and 400²; per class 16 train
+     samples, the validation sample, 4 good, 4 dented and 2 blotched test
+     samples) written with the port's PNG and TIFF writers into a temporary
+     directory, its round trips held exact; ``cli.main(["detect", ...])``
+     over both classes with ``--bank_cache_dir``, then again on the same
+     cache, where each class must be served (no bank pass) with identical
+     metrics; then ``DINO``, ``Point_MAE`` and ``Depth`` on one class, each
+     with its launch check.  Prints the loader's decode-plus-resize time per
+     sample and each class's fit and evaluation times beside the in-memory
+     path's.
 
 Prints the card, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -586,7 +597,7 @@ def phase_path(dev, name: str, samples, profile=None):
         _profile_eval(runner, test, name, profile)
 
     compare_with_cpu(cfg, method, test[:2])
-    return launches, metrics
+    return launches, metrics, eval_ms
 
 
 @contextlib.contextmanager
@@ -763,6 +774,116 @@ def _profile_eval(runner, test, name, out_dir):
     print("\n".join(table.splitlines()[:25]))
 
 
+# --------------------------------------------------------------------------
+# phase 4: detect from disk
+# --------------------------------------------------------------------------
+
+# the fixture's two classes and their raw scan sizes; the CLI's class list
+# is cut to them (the CLI runs MVTec 3D-AD's ten class names otherwise)
+DISK_CLASSES = {"scan_800": 800, "scan_400": 400}
+DISK_FIXTURE = dict(n_train=16, n_test_good=4, n_test_bad=4, n_test_color=2,
+                    seed=SEED, anomaly_radius=(0.13, 0.18))
+# the kernels each method launches on the disk path, and those it must not
+METHOD_KERNELS = {
+    "DINO": (("bank_min",), ("fps", "interp")),
+    "Depth": (("bank_min",), ("fps", "interp")),
+    "Point_MAE": (("bank_min", "fps", "interp"), ()),
+}
+
+
+def _detect(args):
+    """``cli.main(["detect", ...])`` with the class list cut to the
+    fixture's; -> (results, timings, launches in the run)."""
+    import torch
+    from unittest import mock
+    from cmdiad_tpu_torch import cli, kernels
+    from cmdiad_tpu_torch.data import mvtec3d
+    kernels.reset_launches()
+    with mock.patch.object(mvtec3d, "mvtec3d_classes", lambda: list(DISK_CLASSES)):
+        results, timings = cli.main(["detect", "--device", "cuda", "--batch_size", "8",
+                                     "--seed", str(SEED), *args])
+    torch.cuda.synchronize()
+    for cls, m in results.items():
+        for k, v in m.items():
+            assert np.isfinite(v) and 0.0 <= v <= 1.0, (cls, k, v)
+    return results, timings, dict(kernels.LAUNCHES)
+
+
+def phase_detect(card: str, memory_eval_ms: float):
+    from cmdiad_tpu_torch.data import png, tiffio
+    from cmdiad_tpu_torch.data.loader import iter_samples
+    from cmdiad_tpu_torch.data.mvtec3d import MVTec3DDataset
+    from cmdiad_tpu_torch.data.synthetic import make_synthetic_dataset, synthetic_files
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "mvtec")
+        t0 = time.perf_counter()
+        for cls, size in DISK_CLASSES.items():
+            make_synthetic_dataset(root, class_names=(cls,), size=size, **DISK_FIXTURE)
+        t1 = time.perf_counter()
+        n = 0
+        for cls, size in DISK_CLASSES.items():
+            for rel, arr in synthetic_files((cls,), size=size, **DISK_FIXTURE):
+                path = os.path.join(root, rel)
+                got = (png.imread(path, "L" if arr.ndim == 2 else "RGB")
+                       if rel.endswith(".png") else tiffio.imread(path))
+                assert got.dtype == arr.dtype and np.array_equal(got, arr), rel
+                n += 1
+        print(f"detect from disk: wrote the fixture in {t1 - t0:.1f} s; {n} PNG "
+              f"and TIFF files decode to the arrays written")
+        for cls, size in DISK_CLASSES.items():
+            ds = MVTec3DDataset(root, cls, "test")
+            t0 = time.perf_counter()
+            for i in range(4):
+                png.imread(ds.records[i].rgb_path)
+            decode = (time.perf_counter() - t0) / 4 * 1e3
+            t0 = time.perf_counter()
+            for i in range(4):
+                ds.load(i)
+            serial = (time.perf_counter() - t0) / 4 * 1e3
+            t0 = time.perf_counter()
+            k = sum(1 for _ in iter_samples(ds))
+            threaded = (time.perf_counter() - t0) / k * 1e3
+            print(f"{cls} ({size}²): decode + resize {threaded:.1f} ms a sample "
+                  f"through iter_samples (6 threads, {k} test samples), "
+                  f"{serial:.1f} ms a sample on one thread, of which the RGB "
+                  f"PNG's decode {decode:.1f} ms; {card}")
+
+        cache, res = os.path.join(tmp, "cache"), os.path.join(tmp, "results")
+        common = ["--dataset_path", root, "--results_dir", res]
+        first, t_first, launches = _detect([*common, "--bank_cache_dir", cache])
+        print(f"detect DINO+Point_MAE launches {launches}")
+        for k in ("bank_min", "fps", "interp"):
+            assert launches[k] > 0, f"{k} was not launched by detect"
+        for cls, t in t_first.items():
+            assert "bank_pass_s" in t and "bank_load_s" not in t, (cls, t)
+            fit_s = t["bank_pass_s"] + t["coreset_s"] + t["late_fusion_s"]
+            print(f"{cls}: fit {fit_s:.2f} s from disk ({DISK_FIXTURE['n_train']} samples, two passes: "
+                  f"bank {t['bank_pass_s']:.2f} s, coreset {t['coreset_s']:.2f} s, "
+                  f"calibration {t['late_fusion_s']:.2f} s); evaluate "
+                  f"{1e3 / t['eval_images_per_s']:.2f} ms an image from disk against "
+                  f"{memory_eval_ms:.2f} ms in memory (phase 3, default path); "
+                  f"metrics {first[cls]}; {card}")
+        again, t_again, launches = _detect([*common, "--bank_cache_dir", cache])
+        for cls, t in t_again.items():
+            assert "bank_load_s" in t and "bank_pass_s" not in t, (cls, t)
+            assert again[cls] == first[cls], (cls, again[cls], first[cls])
+            print(f"{cls}: served from the cache in {t['bank_load_s']:.3f} s, "
+                  f"metrics identical; evaluate {1e3 / t['eval_images_per_s']:.2f} ms "
+                  f"an image")
+        assert launches["fps"] > 0 and launches["bank_min"] > 0, launches
+        for method, (must, must_not) in METHOD_KERNELS.items():
+            out, t, launches = _detect([*common, "--method_name", method,
+                                        "--class_name", "scan_400"])
+            print(f"detect {method} on scan_400: launches {launches}; fit "
+                  f"{t['scan_400']['bank_pass_s']:.2f} s bank pass; metrics "
+                  f"{out['scan_400']}")
+            for k in must:
+                assert launches[k] > 0, f"{method} did not launch {k}"
+            for k in must_not:
+                assert launches[k] == 0, f"{method} launched {k}"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -793,14 +914,15 @@ def main() -> int:
     samples = make_synthetic_samples(
         n_train=16, n_test_good=4, n_test_bad=4, size=224, seed=SEED,
         anomaly_radius=(0.13, 0.18), point_capacity=32768)
-    launches, metrics = {}, {}
+    launches, metrics, eval_ms = {}, {}, {}
     for name in PATHS:
-        launches[name], metrics[name] = phase_path(dev, name, samples,
-                                                   args.profile)
+        launches[name], metrics[name], eval_ms[name] = phase_path(
+            dev, name, samples, args.profile)
     for k, limit in THROUGHPUT_ENVELOPE.items():
         delta = abs(metrics["throughput"][k] - metrics["default"][k])
         print(f"throughput vs default {k}: |delta| {delta:.4f} (limit {limit})")
         assert delta <= limit, (k, delta, limit)
+    phase_detect(card, eval_ms["default"])
 
     rows = []
     for name, key, src, replaces in KERNEL_ROWS:

@@ -4,8 +4,11 @@ A copy of ``cmdiad_tpu.config.Config``: the same fields, defaults and
 ``validate``, so a config fingerprint written by either package reads the
 same in the other (``methods.base.state_fingerprint``).  Fields that only
 shape the JAX package's TPU execution (meshes, fused programs, Pallas
-switches) are kept for that reason; the port reads ``compute_dtype`` and
-``batch_size`` and ignores the rest.
+switches) are kept for that reason.  Of those, the port refuses what it
+cannot honour yet (``mesh_shape``, ``shard_bank``, ``ocsvm_backend='jax'``
+raise ``NotImplementedError`` through ``methods.base.refuse_unported`` when
+a method is built) and ignores the ones that shape only the JAX package's
+speed (``use_pallas``, ``fused_eval``, ``cache_train_features``).
 """
 
 from __future__ import annotations
@@ -148,3 +151,27 @@ class Config:
                 f"detection mesh_shape must be 1-D (data-parallel), e.g. "
                 f"(8,) — got {self.mesh_shape!r}")
         return self
+
+
+# Named presets matching the reference README run commands (the JAX
+# package's ``config._PRESETS``).  The MTFI presets build a Config;
+# ``methods.registry.build_method`` refuses them until MTFI is ported.
+_PRESETS = {
+    "rgb": dict(method_name="DINO"),
+    "xyz": dict(method_name="Point_MAE"),
+    "dual": dict(method_name="DINO+Point_MAE"),
+    "mtfi_ftof_xyz_main": dict(method_name="WithHallucination", main_modality="xyz", use_hn=True),
+    "mtfi_ftof_rgb_main": dict(method_name="WithHallucination", main_modality="rgb", use_hn=True),
+    "mtfi_itof_xyz_main": dict(method_name="WithHallucination", main_modality="xyz", use_hrnet=True),
+    "mtfi_itof_rgb_main": dict(method_name="WithHallucination", main_modality="rgb", use_hrnet=True),
+    "mtfi_ftoi_xyz_main": dict(
+        method_name="WithHallucinationFromFeature", main_modality="xyz", use_hn_from_rgb_conv=True),
+    "mtfi_ftoi_rgb_main": dict(
+        method_name="WithHallucinationFromFeature", main_modality="rgb", use_hn_from_rgb_conv=True),
+}
+
+
+def method_preset(name: str, **overrides) -> Config:
+    if name not in _PRESETS:
+        raise KeyError(f"unknown preset {name!r}; choose from {sorted(_PRESETS)}")
+    return Config(**{**_PRESETS[name], **overrides}).validate()

@@ -10,7 +10,9 @@ Reference quirk Q1 (cross-wired normalisation statistics in the multi-bank
 methods) is replicated unless ``fix_cross_stats=True``.
 
 Fitted state persists in the JAX package's npz layout with the same config
-fingerprint, so state fitted by either package serves in the other.
+fingerprint, so state fitted by either package serves in the other.  With
+``save_seg_results`` and ``save_raw_results`` the per-image fused maps and
+the raw image scores are written in the JAX package's file layout.
 """
 
 from __future__ import annotations
@@ -59,7 +61,24 @@ _FINGERPRINT_FIELDS = (
     "compute_dtype", "use_pallas", "use_flash", "seed",
 )
 
-_SAMPLE_KEYS = ("rgb", "organized_pc", "points_compact")
+_SAMPLE_KEYS = ("rgb", "organized_pc", "depth3", "points_compact")
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise NotImplementedError for the config fields that change what a
+    JAX run computes or where it runs and that the port does not honour
+    yet."""
+    if cfg.quantized_blur:
+        raise NotImplementedError("quantized_blur is not ported yet")
+    if cfg.mesh_shape:
+        raise NotImplementedError(
+            f"mesh_shape={cfg.mesh_shape!r}: multi-device detection is not ported yet")
+    if cfg.shard_bank:
+        raise NotImplementedError("shard_bank: row-sharded banks are not ported yet")
+    if cfg.ocsvm_backend != "sklearn":
+        raise NotImplementedError(
+            f"ocsvm_backend={cfg.ocsvm_backend!r}: the port fits the fusers "
+            "with its numpy SGD, the 'sklearn' semantics, only")
 
 
 class MemoryBankMethod:
@@ -67,10 +86,15 @@ class MemoryBankMethod:
 
     #: bank names this method maintains (subclasses set)
     bank_names: Tuple[str, ...] = ()
+    #: sample keys ``extract`` uploads and feeds the backbone (subclasses
+    #: set); single-modality methods list theirs, so they never run the
+    #: other backbone
+    needed_keys: Tuple[str, ...] = ()
+    #: the sample key the ViT reads
+    rgb_input_key = "rgb"
 
     def __init__(self, cfg: Config, backbone, fix_cross_stats: bool = False):
-        if cfg.quantized_blur:
-            raise NotImplementedError("quantized_blur is not ported yet")
+        refuse_unported(cfg)
         self.cfg = cfg
         self.backbone = backbone
         self.device = backbone.device
@@ -101,10 +125,11 @@ class MemoryBankMethod:
 
     # ---------------- features --------------------------------------------
     def extract(self, batch: dict) -> dict:
-        """Backbone features of a stacked batch (numpy arrays -> device)."""
+        """Backbone features of a stacked batch (numpy arrays -> device),
+        from the keys in ``needed_keys`` only."""
         dev = {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
-               for k in _SAMPLE_KEYS if k in batch}
-        return self.backbone.extract(images=dev.get("rgb"),
+               for k in _SAMPLE_KEYS if k in batch and k in self.needed_keys}
+        return self.backbone.extract(images=dev.get(self.rgb_input_key),
                                      organized_pc=dev.get("organized_pc"),
                                      compact_pts=dev.get("points_compact"))
 
@@ -227,6 +252,16 @@ class MemoryBankMethod:
         self.predictions.append(fused_map)
         self.gts.append(mask_np)
         self.img_paths.append(rgb_path)
+        if self.cfg.save_seg_results:
+            # results/segmentation/<class>/<rgb file stem>.npz, as the JAX
+            # package writes it: the stem alone, so the same file name in
+            # two defect directories lands on one file and the last wins
+            stem = os.path.splitext(os.path.basename(str(rgb_path)))[0]
+            out_dir = os.path.join(self.cfg.results_dir, "segmentation",
+                                   str(self.class_name))
+            os.makedirs(out_dir, exist_ok=True)
+            np.savez_compressed(os.path.join(out_dir, stem + ".npz"),
+                                s_map=fused_map, gt=mask_np)
 
     def reset_predictions(self):
         """Clear accumulated predictions (e.g. to run an eval pass again)."""
@@ -293,6 +328,14 @@ class MemoryBankMethod:
     def calculate_metrics(self) -> dict:
         image_preds = np.asarray(self.image_preds)
         image_labels = np.asarray(self.image_labels)
+        if self.cfg.save_raw_results:
+            # results/raw/<class>_raw_results.csv: score,label,path a line
+            out_dir = os.path.join(self.cfg.results_dir, "raw")
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f"{self.class_name}_raw_results.csv"),
+                      "w") as fh:
+                for s, lab, path in zip(image_preds, image_labels, self.img_paths):
+                    fh.write(f"{s},{lab},{path}\n")
         pixel_preds = np.concatenate(self.pixel_preds)
         pixel_labels = np.concatenate(self.pixel_labels)
         self.image_rocauc = roc_auc_score(image_labels, image_preds)

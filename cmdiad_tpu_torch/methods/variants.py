@@ -1,5 +1,12 @@
-"""Method variants of the port.  ``DoubleMethod`` (DINO+Point_MAE) is the
-only one ported so far; ``methods.registry.build_method`` refuses the rest.
+"""Method variants of the port: the four memory-bank methods.
+
+  DINO            ``RGBMethod``     one rgb bank of ViT patches
+  Point_MAE       ``PointMethod``   one xyz bank of Point-MAE patches
+  Depth           ``DepthMethod``   ``RGBMethod`` on the 3-channel depth map
+  DINO+Point_MAE  ``DoubleMethod``  both banks, Q1 cross-wired statistics
+
+The MTFI methods are not ported yet; ``methods.registry.build_method``
+refuses them.
 """
 
 from __future__ import annotations
@@ -46,10 +53,47 @@ class BatchedScoresMixin:
         self._record_predictions(s_vec, maps, batch)
 
 
+class RGBMethod(BatchedScoresMixin, MemoryBankMethod):
+    """One rgb bank (reference ``RGBFeatures``)."""
+
+    bank_names = ("rgb",)
+    needed_keys = ("rgb",)   # never run the point backbone
+
+    def _batch_modalities(self):
+        c = self.cfg
+        return [("rgb", "rgb_patch", c.rgb_s_lambda, c.rgb_smap_lambda)]
+
+    def run_coreset(self):
+        self._finalize_banks(norm_names=("rgb",), coreset_names=("rgb",))
+
+
+class DepthMethod(RGBMethod):
+    """The rgb pipeline on the 3-channel depth map (reference
+    ``DepthFeatures``)."""
+
+    needed_keys = ("depth3",)
+    rgb_input_key = "depth3"
+
+
+class PointMethod(BatchedScoresMixin, MemoryBankMethod):
+    """One xyz bank (reference ``PointFeatures``)."""
+
+    bank_names = ("xyz",)
+    needed_keys = ("organized_pc", "points_compact")   # never run the ViT
+
+    def _batch_modalities(self):
+        c = self.cfg
+        return [("xyz", "xyz_patch", c.xyz_s_lambda, c.xyz_smap_lambda)]
+
+    def run_coreset(self):
+        self._finalize_banks(norm_names=("xyz",), coreset_names=("xyz",))
+
+
 class DoubleMethod(BatchedScoresMixin, MemoryBankMethod):
     """Dual rgb + xyz banks (reference ``DoubleRGBPointFeatures``)."""
 
     bank_names = ("xyz", "rgb")
+    needed_keys = ("rgb", "organized_pc", "points_compact")
 
     def _batch_modalities(self):
         c = self.cfg
