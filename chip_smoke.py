@@ -33,7 +33,24 @@ Phases:
      metrics; then ``DINO``, ``Point_MAE`` and ``Depth`` on one class, each
      with its launch check.  Prints the loader's decode-plus-resize time per
      sample and each class's fit and evaluation times beside the in-memory
-     path's.
+     path's;
+  5. MTFI few-modal inference at the same width, on one shared backbone:
+     each of the six ``mtfi_*`` presets (FtoF, ItoF, FtoI; rgb and xyz
+     main) with a random fusion net from a seed fits on the 16 train
+     samples and evaluates the 8 test samples holding only the main
+     modality's keys; the main and fusion banks hold rows and the other
+     modality's none; evaluation launches only the main path's kernels (no
+     FPS or interpolation for FtoF/ItoF with the rgb main, FPS over every
+     point of the hallucinated 224² cloud for FtoI's rgb main); the fusion
+     net agrees with a CPU copy of it, and the card's predictions with the
+     CPU's on the card's bank rows and hallucinated features;
+  6. DINOv2 ViT-B/14 at 518² and Point-BERT through the fused attention
+     kernel against the same modules on the CPU, in float32; a backbone
+     and a fusion net written to ``.pth`` files load back through
+     ``rgb_ckpt_path``, ``xyz_ckpt_path`` and ``fusion_module_path`` to the
+     in-memory weights' outputs.  Phase 2 also holds FPS and the
+     interpolation over a dense 50176-point cloud, and attention at DINOv2's 1370 and Point-BERT's 1025
+     tokens against their plain versions.
 
 Prints the card, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -183,13 +200,20 @@ def check_bank_min(rng, dev, nq: int, nb: int, d: int = 768):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def check_fps(rng, dev, batch=8, capacity=32768, groups=1024):
+def check_fps(rng, dev, batch=8, capacity=32768, groups=1024, dense=False):
+    """FPS over the compacted valid points of disc clouds, or with ``dense``
+    over every point of a regressed 224² cloud (``capacity`` 50176, the
+    FtoI rgb-main path's input)."""
     import torch
     from cmdiad_tpu_torch.ops import fps
     from cmdiad_tpu_torch.ops.masked import host_compact_points, nonzero_point_mask
-    pc = _disc_cloud(rng, batch)
-    pts = torch.from_numpy(np.stack(
-        [host_compact_points(pc[i], capacity) for i in range(batch)])).to(dev)
+    if dense:
+        pts = torch.from_numpy(
+            0.5 + 0.05 * rng.normal(size=(batch, capacity, 3)).astype(np.float32)).to(dev)
+    else:
+        pc = _disc_cloud(rng, batch)
+        pts = torch.from_numpy(np.stack(
+            [host_compact_points(pc[i], capacity) for i in range(batch)])).to(dev)
     mask = nonzero_point_mask(pts)
     ki = fps._fps_cuda(pts, mask, groups)
     ki2 = fps._fps_cuda(pts, mask, groups)
@@ -225,16 +249,21 @@ def check_fps(rng, dev, batch=8, capacity=32768, groups=1024):
                 bound_by=bound_by, library_ms=None)
 
 
-def check_interp(rng, dev, batch=8, size=224, groups=1024, d=768):
+def check_interp(rng, dev, batch=8, size=224, groups=1024, d=768, dense=False):
     """Both output types at the paths' size, each bit-identical to the
     plain version and over two launches; returns the float32 row of the
     kernels line (the default path's) and prints the bfloat16 one (the
-    throughput path's) with its own bound."""
+    throughput path's) with its own bound.  With ``dense`` every point of
+    the 224² cloud is valid, as in the regressed cloud that FtoI rgb main
+    re-encodes."""
     import torch
     from cmdiad_tpu_torch.ops import interpolate as ip
     from cmdiad_tpu_torch.ops.masked import nonzero_point_mask
-    pts = torch.from_numpy(_disc_cloud(rng, batch, size).reshape(
-        batch, size * size, 3)).to(dev)
+    if dense:
+        cloud = 0.5 + 0.05 * rng.normal(size=(batch, size, size, 3)).astype(np.float32)
+    else:
+        cloud = _disc_cloud(rng, batch, size)
+    pts = torch.from_numpy(cloud.reshape(batch, size * size, 3)).to(dev)
     mask = nonzero_point_mask(pts)
     # centers are input points, as FPS gives them: coincident pairs
     # exercise the clamp at 0
@@ -245,10 +274,11 @@ def check_interp(rng, dev, batch=8, size=224, groups=1024, d=768):
     centers = torch.gather(pts, 1, cidx[..., None].expand(-1, -1, 3))
     feats = torch.from_numpy(rng.normal(size=(batch, groups, d)).astype(
         np.float32)).to(dev)
-    print("interp schedule: blocks of 128 points, eight a SM; the first "
-          "warps search the valid points, one a lane, while the others write "
-          "the masked points' zero rows; then every warp writes valid rows, "
-          "keeping the last centers' feature pieces")
+    if not dense:
+        print("interp schedule: blocks of 128 points, eight a SM; the first "
+              "warps search the valid points, one a lane, while the others write "
+              "the masked points' zero rows; then every warp writes valid rows, "
+              "keeping the last centers' feature pieces")
     res = {}
     for bf16 in (False, True):
         ko = ip._three_nn_cuda(pts, mask, centers, feats, bf16)
@@ -517,12 +547,18 @@ def phase_kernels(dev):
     res["fps"] = check_fps(rng, dev)
     check_fps(rng, dev, batch=1)
     check_fps(rng, dev, batch=3)
+    # FtoI rgb main: every point of the hallucinated 224² cloud
+    check_fps(rng, dev, capacity=224 * 224, dense=True)
     res["interp"] = check_interp(rng, dev)
-    # ViT-B/8 (785 tokens, 12 heads) and Point-MAE (1024 tokens, 6 heads)
+    # FtoI rgb main: the regressed cloud, every one of its 50176 points valid
+    check_interp(rng, dev, dense=True)
+    # ViT-B/8 (785 tokens, 12 heads), Point-MAE (1024 tokens, 6 heads),
+    # DINOv2 at 518² (1370 tokens, 12 heads), Point-BERT (1025, 6)
     res["flash_attn"] = check_flash(rng, dev, "bfloat16", 785, 12)
-    check_flash(rng, dev, "bfloat16", 1024, 6)
-    check_flash(rng, dev, "float32", 785, 12)
-    check_flash(rng, dev, "float32", 1024, 6)
+    for dtype in ("bfloat16", "float32"):
+        for n, heads in ((1024, 6), (1370, 12), (1025, 6)) + (
+                ((785, 12),) if dtype == "float32" else ()):
+            check_flash(rng, dev, dtype, n, heads)
     res["int8_dot"], probe_launches = phase_probe(rng, dev)
     return res, probe_launches
 
@@ -701,9 +737,20 @@ def _check_flips(metric, gpu_log, cpu_log) -> int:
 SAME_ROWS_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 1e-1)}
 
 
+def _replay(outputs):
+    """A stand-in for ``_hallucinate`` that hands back ``outputs`` in order,
+    on the caller's device."""
+    it = iter(outputs)
+    return lambda dev, out: next(it).to(next(iter(out.values())).device)
+
+
 def compare_with_cpu(cfg, method, samples):
     """Serve the card's fitted state on the CPU through the plain versions
-    and hold the card's predictions for ``samples`` against it.
+    and hold the card's predictions for ``samples`` against it.  An MTFI
+    method's fusion net is served on the CPU too, and the CPU scores the
+    card's hallucinated features (FtoI re-encodes a regressed input, where
+    the two devices' FPS may part at a near tie; ``check_fusion_net`` holds
+    the nets themselves to each other).
 
     The two devices' backbones differ in summation order (float32: about
     1e-6; bfloat16: ulps of 2^-8), so where two bank rows lie within the
@@ -716,29 +763,42 @@ def compare_with_cpu(cfg, method, samples):
     sum_k |w_k| lambda_k max |q_gpu - q_cpu| over the banks k."""
     from cmdiad_tpu_torch.methods.registry import build_method
     metric = cfg.dist_method_s
-    gpu_log, cpu_log, forced_log = [], [], []
+    dev = method.device
+    gpu_log, cpu_log, forced_log, halls = [], [], [], []
+    if method.fusion is not None:
+        hallucinate = method._hallucinate
+        method._hallucinate = lambda d, o: halls.append(hallucinate(d, o)) or halls[-1]
     with _bank_choices(gpu_log):
         gpu_s, gpu_maps = _predict(method, samples)
+    method.__dict__.pop("_hallucinate", None)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "state.npz")
         method.save_state(path)
+        fusion = None if method.fusion is None else method.fusion.to("cpu")
         cpu_method = build_method(cfg, backbone=method.backbone.to("cpu"),
-                                  device="cpu")
+                                  device="cpu", fusion=fusion)
         cpu_method.load_state(path)
-    with _bank_choices(cpu_log):
-        cpu_s, cpu_maps = _predict(cpu_method, samples)
-    with _bank_choices(forced_log, forced=gpu_log):
-        same_s, same_maps = _predict(cpu_method, samples)
+    logs = []
+    for log, forced in ((cpu_log, None), (forced_log, gpu_log)):
+        if halls:
+            cpu_method._hallucinate = _replay(halls)
+        with _bank_choices(log, forced=forced):
+            logs.append(_predict(cpu_method, samples))
+    (cpu_s, cpu_maps), (same_s, same_maps) = logs
+    method.backbone.to(dev)
+    if fusion is not None:
+        fusion.to(dev)
     _check_flips(metric, gpu_log, cpu_log)
 
-    # feature differences per bank (the log holds the xyz then the rgb call)
+    # feature differences per bank, in the method's bank order
     dq, rel = [], []
     for (qg, _, _), (qc, _, _) in zip(gpu_log, cpu_log):
         diff = (qg.double() - qc.double())
         dq.append(float(diff.norm(dim=1).max()))
         rel.append(float(diff.norm() / qc.double().norm()))
-    print(f"card vs CPU {cfg.compute_dtype} backbone features (normalised, "
-          f"xyz then rgb): relative difference {', '.join(f'{r:.3e}' for r in rel)}; "
+    banks = [m[0] for m in method._batch_modalities()]
+    print(f"card vs CPU {cfg.compute_dtype} features (normalised, "
+          f"{' then '.join(banks)}): relative difference {', '.join(f'{r:.3e}' for r in rel)}; "
           f"largest patch |q_gpu - q_cpu| {', '.join(f'{x:.3e}' for x in dq)}")
 
     scale = float(np.max(np.abs(cpu_maps)))
@@ -747,7 +807,7 @@ def compare_with_cpu(cfg, method, samples):
     s_same = float(np.max(np.abs(gpu_s - same_s) / np.maximum(np.abs(same_s), 1e-6)))
     m_same = float(np.max(np.abs(gpu_maps - same_maps))) / scale
     _, ws = cpu_method._fuser_weights()
-    lam = (cfg.xyz_smap_lambda, cfg.rgb_smap_lambda)
+    lam = [m[3] for m in method._batch_modalities()]
     m_bound = sum(abs(float(w)) * l * x
                   for w, l, x in zip(ws.cpu(), lam, dq)) / scale
     print(f"card vs CPU plain versions: image score rel err {s_err:.3e}, map "
@@ -884,11 +944,234 @@ def phase_detect(card: str, memory_eval_ms: float):
                 assert launches[k] == 0, f"{method} launched {k}"
 
 
+# --------------------------------------------------------------------------
+# phase 5: MTFI few-modal inference
+# --------------------------------------------------------------------------
+
+# per preset: the kernels its evaluation (main modality only) must launch
+# and those it must not; FtoI rgb main must also run FPS on every point of
+# its hallucinated 224² cloud
+MTFI_KERNELS = {
+    "mtfi_ftof_rgb_main": (("bank_min",), ("fps", "interp")),
+    "mtfi_itof_rgb_main": (("bank_min",), ("fps", "interp")),
+    "mtfi_ftoi_rgb_main": (("bank_min", "fps", "interp"), ()),
+    "mtfi_ftof_xyz_main": (("bank_min", "fps", "interp"), ()),
+    "mtfi_itof_xyz_main": (("bank_min", "fps", "interp"), ()),
+    "mtfi_ftoi_xyz_main": (("bank_min", "fps", "interp"), ()),
+}
+# the fusion net on the card against a copy on the CPU, same input, as a
+# share of the output's largest value: float32 summation order (a limit
+# fixed before the first run)
+FUSION_NET_TOL = 1e-4
+_META_KEYS = ("gt", "label", "rgb_path")
+
+
+def check_fusion_net(method, batch):
+    """The fusion net on the card and a CPU copy of it, on one batch's
+    main-modality input (features from the card's backbone, or the raw
+    input for HRNet)."""
+    import copy
+    import torch
+    cfg = method.cfg
+    dev = method.upload(batch, method._main_input_keys())
+    out = method.backbone.extract(images=dev.get("rgb"),
+                                  organized_pc=dev.get("organized_pc"),
+                                  compact_pts=dev.get("points_compact"))
+    rgb_main = cfg.main_modality == "rgb"
+    if cfg.use_hrnet:
+        x = dev["rgb" if rgb_main else "organized_pc"]
+    else:
+        x = out["rgb_patch2" if rgb_main else "xyz_patch"]
+    if cfg.use_hn or cfg.use_hn_conv:
+        def run(net, t):
+            return net.generate(t, "xyz" if rgb_main else "rgb")
+    else:
+        def run(net, t):
+            return net(t)
+    with torch.no_grad():
+        got = run(method.fusion, x).float().cpu()
+        want = run(copy.deepcopy(method.fusion).to("cpu"), x.cpu()).float()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= FUSION_NET_TOL, err
+    return err, tuple(got.shape)
+
+
+def phase_mtfi(dev, samples, card: str, profile=None):
+    """The six MTFI presets at full width on one shared backbone: fit on
+    the 16 train samples, evaluate the 8 test samples with only the main
+    modality's keys, check the banks, the launches, the fusion net and the
+    predictions against the CPU; with ``profile``, one more evaluation pass
+    of each preset profiled into that directory."""
+    import torch
+    from cmdiad_tpu_torch import kernels
+    from cmdiad_tpu_torch.config import Config, method_preset
+    from cmdiad_tpu_torch.data.loader import stack_batches
+    from cmdiad_tpu_torch.methods.registry import build_backbone
+    from cmdiad_tpu_torch.models import point_mae
+    from cmdiad_tpu_torch.runner import CMDIADRunner
+
+    train, test = samples
+    backbone = build_backbone(Config(seed=SEED), dev)
+    fps_points = []
+    fps_call = point_mae.farthest_point_sample
+    point_mae.farthest_point_sample = (
+        lambda pts, *a: fps_points.append(pts.shape[1]) or fps_call(pts, *a))
+    launches = {}
+    try:
+        for preset, (must, must_not) in MTFI_KERNELS.items():
+            cfg = method_preset(preset, batch_size=8, seed=SEED)
+            keep = (("rgb",) if cfg.main_modality == "rgb"
+                    else ("organized_pc", "points_compact")) + _META_KEYS
+            few = [{k: v for k, v in smp.items() if k in keep} for smp in test]
+            runner = CMDIADRunner(cfg, backbone=backbone, device=dev)
+            method = runner.method
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.fit("synthetic", train)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            kernels.reset_launches()
+            del fps_points[:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = runner.evaluate("synthetic", few)
+            torch.cuda.synchronize()
+            eval_ms = (time.perf_counter() - t0) / len(few) * 1e3
+            launches[preset] = dict(kernels.LAUNCHES)
+            for k, v in metrics.items():
+                assert np.isfinite(v) and 0.0 <= v <= 1.0, (preset, k, v)
+            main, other = cfg.main_modality, "xyz" if cfg.main_modality == "rgb" else "rgb"
+            assert set(method.banks) == {main, "fusion"}, method.banks
+            assert method.bank_sizes[main] > 0 and method.bank_sizes["fusion"] > 0
+            assert other not in method.bank_sizes and not method._bank_acc[other]
+            for k in must:
+                assert launches[preset][k] > 0, f"{preset} did not launch {k}"
+            for k in must_not:
+                assert launches[preset][k] == 0, f"{preset} launched {k}"
+            if preset == "mtfi_ftoi_rgb_main":
+                assert set(fps_points) == {cfg.xyz_size ** 2}, fps_points
+            err, shape = check_fusion_net(method, next(stack_batches(few[:2], 2)))
+            print(f"{preset}: fit {fit_s:.2f} s (16 samples, batch 8: "
+                  + ", ".join(f"{k} {runner.timings[k]:.3f} s"
+                              for k in ("bank_pass_s", "coreset_s", "late_fusion_s"))
+                  + f"); evaluate {eval_ms:.2f} ms an image (8 samples, main "
+                  f"modality only, metrics included); banks {method.bank_sizes}; "
+                  f"launches in evaluation {launches[preset]}"
+                  + (f", FPS over {sorted(set(fps_points))} points" if fps_points else "")
+                  + f"; fusion net {type(method.fusion).__name__} out {shape}, card "
+                  f"vs CPU {err:.2e} of its largest value; metrics {metrics}; {card}")
+            if profile:
+                _profile_eval(runner, few, preset, profile)
+            compare_with_cpu(cfg, method, few[:2])
+    finally:
+        point_mae.farthest_point_sample = fps_call
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 6: DINOv2, Point-BERT and checkpoints
+# --------------------------------------------------------------------------
+
+# card against CPU forwards of the same float32 modules, as a share of the
+# features' largest value: summation order through 12 blocks (a limit
+# fixed before the first run, the full-width CPU test's 1e-4)
+BACKBONE_TOL = 1e-4
+
+
+def phase_backbones(dev, card: str):
+    """DINOv2 ViT-B/14 at 518² and Point-BERT, both through the fused
+    attention kernel, on the card and on the CPU; then a backbone and a
+    fusion net written to ``.pth`` files and loaded back through the
+    config's checkpoint paths."""
+    import torch
+    from cmdiad_tpu_torch import kernels
+    from cmdiad_tpu_torch.config import Config, method_preset
+    from cmdiad_tpu_torch.methods.registry import build_backbone, build_fusion
+    from cmdiad_tpu_torch.models.backbone import DualBackbone
+    from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
+    from cmdiad_tpu_torch.models.vit import VIT_CONFIGS, LayerScale
+    from cmdiad_tpu_torch.ops.masked import host_compact_points
+
+    rng = np.random.default_rng(SEED)
+    bb = DualBackbone(vit_config=VIT_CONFIGS["vit_base_patch14_dinov2.lvd142m"],
+                      pm_config=PointMAEConfig(encoder_dims=256), use_flash=True,
+                      device=dev, seed=SEED)
+    with torch.no_grad():        # LayerScale's 1e-5 init would mute the blocks
+        for m in bb.vit.modules():
+            if isinstance(m, LayerScale):
+                m.gamma.fill_(1.0)
+    vc = bb.vit_config
+    img = torch.from_numpy(rng.normal(size=(2, vc.img_size, vc.img_size, 3)).astype(
+        np.float32))
+    pc = _disc_cloud(rng, 2)
+    compact = torch.from_numpy(np.stack([host_compact_points(p, 32768) for p in pc]))
+    pc = torch.from_numpy(pc)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got_rgb = bb.rgb_patches(img)
+    got_xyz = bb.xyz_patches(pc, compact)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    assert launches["flash_attn"] == vc.depth + bb.pm_config.depth, launches
+    bb.to("cpu")
+    want_rgb = bb.rgb_patches(img)
+    want_xyz = bb.xyz_patches(pc, compact)
+    assert got_rgb[0].shape == (2, vc.grid ** 2, vc.embed_dim)
+    assert got_rgb[1].shape == (2, 3136, vc.embed_dim)
+    errs = {}
+    for name, g, w in (("dinov2 rgb_patch", got_rgb[0], want_rgb[0]),
+                       ("dinov2 rgb_patch2", got_rgb[1], want_rgb[1]),
+                       ("point_bert group_feats", got_xyz["group_feats"],
+                        want_xyz["group_feats"]),
+                       ("point_bert xyz_patch", got_xyz["xyz_patch"],
+                        want_xyz["xyz_patch"])):
+        errs[name] = float((g.cpu() - w).abs().max() / w.abs().max())
+        assert errs[name] <= BACKBONE_TOL, (name, errs[name])
+    assert torch.equal(got_xyz["center_idx"].cpu(), want_xyz["center_idx"])
+    print(f"DINOv2 ViT-B/14 at 518² (37² grid, 1370 tokens) and Point-BERT "
+          f"(encoder 256 -> 384, cls token; 1025 tokens), float32, fused "
+          f"attention ({launches['flash_attn']} launches), batch 2: card vs CPU "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" of the largest value; FPS centres identical; card forwards "
+          f"{card_s:.2f} s including first-call set-up; {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = method_preset("mtfi_ftof_xyz_main", seed=SEED)
+        src = build_backbone(cfg, dev)
+        net = build_fusion(cfg, src, dev)
+        paths = {k: os.path.join(tmp, f"{k}.pth") for k in ("vit", "point", "fusion")}
+        torch.save({"model": src.vit.state_dict()}, paths["vit"])
+        torch.save({f"base_model.{k}": v for k, v in src.point.state_dict().items()},
+                   paths["point"])
+        torch.save({"model": net.state_dict()}, paths["fusion"])
+        loaded_cfg = cfg.replace(rgb_ckpt_path=paths["vit"], xyz_ckpt_path=paths["point"],
+                                 fusion_module_path=paths["fusion"], seed=SEED + 11)
+        loaded = build_backbone(loaded_cfg, dev)
+        loaded_net = build_fusion(loaded_cfg, loaded, dev)
+        img = torch.from_numpy(rng.normal(
+            size=(2, cfg.rgb_size, cfg.rgb_size, 3)).astype(np.float32))
+        pc = torch.from_numpy(_disc_cloud(rng, 2, cfg.xyz_size))
+        outs = []
+        with torch.no_grad():
+            for b, n in ((src, net), (loaded, loaded_net)):
+                feats = b.extract(images=img, organized_pc=pc)
+                outs.append((feats["rgb_patch"], feats["xyz_patch"],
+                             n.generate(feats["xyz_patch"], "rgb")))
+        errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*outs)]
+        assert max(errs) <= 1e-6, errs
+        print(f"checkpoints: ViT-B/8 (timm names), Point-MAE (base_model. prefix) "
+              f"and the FtoF MLP written to .pth and loaded through rgb_ckpt_path, "
+              f"xyz_ckpt_path and fusion_module_path: rgb_patch, xyz_patch and "
+              f"the hallucinated features differ from the in-memory weights' by "
+              + ", ".join(f"{e:.1e}" for e in errs) + " of the largest value")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one evaluation pass of each path "
-                         "(torch.profiler) and write the tables to DIR")
+                    help="also profile one evaluation pass of each path and "
+                         "MTFI preset (torch.profiler) and write the tables to DIR")
     args = ap.parse_args()
 
     import torch
@@ -923,6 +1206,8 @@ def main() -> int:
         print(f"throughput vs default {k}: |delta| {delta:.4f} (limit {limit})")
         assert delta <= limit, (k, delta, limit)
     phase_detect(card, eval_ms["default"])
+    phase_mtfi(dev, samples, card, args.profile)
+    phase_backbones(dev, card)
 
     rows = []
     for name, key, src, replaces in KERNEL_ROWS:

@@ -1,6 +1,7 @@
 """Command-line interface of the port.
 
   python -m cmdiad_tpu_torch.cli detect [--<Config field> value ...] [--device cuda|cpu]
+  python -m cmdiad_tpu_torch.cli convert-ckpt --src net.pth --dst net.npz --kind KIND
 
 ``detect`` fits and evaluates every class of the dataset at
 ``--dataset_path`` (or the one ``--class_name``) with the configured
@@ -8,6 +9,12 @@ method, prints one markdown table a metric and, with ``--save_results``
 (default true), appends them to ``<results_dir>/*.md``.  Every ``Config``
 field is a flag.  ``--device`` defaults to ``cuda``; ``--trace_dir DIR``
 writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``.
+The MTFI methods take their fusion net from ``--fusion_module_path`` (a
+reference ``.pth`` or the JAX package's ``.npz``), the backbones their
+weights from ``--rgb_ckpt_path`` and ``--xyz_ckpt_path``.
+
+``convert-ckpt`` writes a reference torch checkpoint in the JAX package's
+npz layout, the same file as the JAX CLI's ``convert-ckpt``.
 
 The tables are the text of pandas' ``DataFrame.to_markdown(index=False)``
 (tabulate's ``pipe`` format), written without pandas.
@@ -23,6 +30,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from cmdiad_tpu_torch.config import Config
+from cmdiad_tpu_torch.models import convert
 
 
 def _parse_int_tuple(s: str) -> tuple:
@@ -175,6 +183,25 @@ def cmd_detect(args):
     return results, timings
 
 
+# convert-ckpt --kind -> the JAX-layout writer of a reference state dict
+_CONVERTERS = {
+    "vit": convert.vit_from_timm,
+    "point_mae": lambda sd: convert.point_mae_from_torch(convert.strip_pointmae_prefixes(sd)),
+    "ftof_mlp": convert.ftof_mlp_from_torch,
+    "ftof_conv": convert.ftof_conv_from_torch,
+    "ftoi_mlp": convert.ftoi_mlp_from_torch,
+    "ftoi_conv": convert.ftoi_conv_from_torch,
+    "hrnet": convert.hrnet_from_torch,
+}
+
+
+def cmd_convert_ckpt(args) -> None:
+    from cmdiad_tpu_torch.train.checkpoint import save_pytree
+    tree = _CONVERTERS[args.kind](convert.load_torch_checkpoint(args.src))
+    save_pytree(args.dst, tree, meta={"kind": args.kind, "src": args.src})
+    print(f"converted {args.src} -> {args.dst}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("cmdiad_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -185,6 +212,11 @@ def main(argv=None):
     p.add_argument("--trace_dir", default="",
                    help="write a torch.profiler trace of the run to DIR/trace.json")
     p.set_defaults(fn=cmd_detect)
+    p = sub.add_parser("convert-ckpt", help="torch .pth -> the JAX package's .npz params")
+    p.add_argument("--src", required=True)
+    p.add_argument("--dst", required=True)
+    p.add_argument("--kind", required=True, choices=list(_CONVERTERS))
+    p.set_defaults(fn=cmd_convert_ckpt)
     args = parser.parse_args(argv)
     return args.fn(args)
 

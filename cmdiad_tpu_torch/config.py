@@ -154,8 +154,7 @@ class Config:
 
 
 # Named presets matching the reference README run commands (the JAX
-# package's ``config._PRESETS``).  The MTFI presets build a Config;
-# ``methods.registry.build_method`` refuses them until MTFI is ported.
+# package's ``config._PRESETS``).
 _PRESETS = {
     "rgb": dict(method_name="DINO"),
     "xyz": dict(method_name="Point_MAE"),

@@ -7,7 +7,9 @@ and the metrics.  Plain eager code: the same numbers as the JAX package's
 fused programs, without their dispatch-saving structure.
 
 Reference quirk Q1 (cross-wired normalisation statistics in the multi-bank
-methods) is replicated unless ``fix_cross_stats=True``.
+methods) is replicated unless ``fix_cross_stats=True``.  A bank that only
+feeds those statistics (the MTFI methods' other modality) keeps no rows:
+only (sum, sum of squares, count) partials, on the device.
 
 Fitted state persists in the JAX package's npz layout with the same config
 fingerprint, so state fitted by either package serves in the other.  With
@@ -93,15 +95,20 @@ class MemoryBankMethod:
     #: the sample key the ViT reads
     rgb_input_key = "rgb"
 
-    def __init__(self, cfg: Config, backbone, fix_cross_stats: bool = False):
+    def __init__(self, cfg: Config, backbone, fusion=None,
+                 fix_cross_stats: bool = False):
         refuse_unported(cfg)
         self.cfg = cfg
         self.backbone = backbone
         self.device = backbone.device
+        # the MTFI fusion net (models.hallucination / models.hrnet), or None
+        self.fusion = fusion
         self.fix_cross_stats = fix_cross_stats
         self.class_name: Optional[str] = None
 
         self._bank_acc: Dict[str, List[torch.Tensor]] = {n: [] for n in self.bank_names}
+        # stats-only banks: (sum, sum of squares, count) partials a batch
+        self._stats_acc: Dict[str, List[Tuple[torch.Tensor, torch.Tensor, int]]] = {}
         self.banks: Dict[str, torch.Tensor] = {}
         self.bank_sizes: Dict[str, int] = {}     # true rows before pad_bank
         self.nn_tables: Dict[str, torch.Tensor] = {}
@@ -124,40 +131,74 @@ class MemoryBankMethod:
         self.au_pro = self.au_pro_001 = 0.0
 
     # ---------------- features --------------------------------------------
-    def extract(self, batch: dict) -> dict:
+    def upload(self, batch: dict, keys=None) -> Dict[str, torch.Tensor]:
+        """The sample arrays of a stacked batch under ``keys`` (default
+        ``needed_keys``) on the device."""
+        keys = self.needed_keys if keys is None else keys
+        return {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
+                for k in _SAMPLE_KEYS if k in batch and k in keys}
+
+    def extract(self, batch: dict, with_2828: bool = False) -> dict:
         """Backbone features of a stacked batch (numpy arrays -> device),
         from the keys in ``needed_keys`` only."""
-        dev = {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
-               for k in _SAMPLE_KEYS if k in batch and k in self.needed_keys}
+        dev = self.upload(batch)
         return self.backbone.extract(images=dev.get(self.rgb_input_key),
                                      organized_pc=dev.get("organized_pc"),
-                                     compact_pts=dev.get("points_compact"))
+                                     compact_pts=dev.get("points_compact"),
+                                     with_2828=with_2828)
+
+    def _stats_only_banks(self) -> Tuple[str, ...]:
+        """Banks that are never scored: only their scalar mean and std feed
+        the (cross-wired) statistics, so no rows are kept."""
+        return ()
 
     def _append(self, name: str, patch: torch.Tensor) -> None:
-        self._bank_acc[name].append(
-            patch.to(torch.float32).reshape(-1, patch.shape[-1]))
+        rows = patch.to(torch.float32).reshape(-1, patch.shape[-1])
+        if name in self._stats_only_banks():
+            self._stats_acc.setdefault(name, []).append(
+                (rows.sum(), (rows * rows).sum(), rows.numel()))
+        else:
+            self._bank_acc[name].append(rows)
+
+    def _streamed_stats(self, name: str) -> Tuple[float, float]:
+        """(mean, std with ddof=1) of a stats-only bank from its partials,
+        combined in float64 on the host."""
+        parts = self._stats_acc.get(name)
+        if not parts:
+            raise ValueError(f"bank {name!r} has no accumulated rows or streamed stats")
+        s1 = sum(float(p[0]) for p in parts)
+        s2 = sum(float(p[1]) for p in parts)
+        cnt = sum(p[2] for p in parts)
+        mean = s1 / max(cnt, 1)
+        var = max(s2 - cnt * mean * mean, 0.0) / max(cnt - 1, 1)
+        return mean, float(np.sqrt(var))
 
     # ---------------- bank building ---------------------------------------
     def _finalize_banks(self, norm_names, coreset_names,
                         stats_pairs: Optional[Dict[str, Tuple[str, str]]] = None):
         """Concatenate the accumulated rows, compute the (possibly
         cross-wired) statistics, normalise, coreset-select, pad and build
-        the NN tables.
+        the NN tables of every bank that kept rows.
 
         stats_pairs maps bank -> (mean source, std source); the reference's
         Q1 wiring is e.g. {'rgb': ('xyz', 'rgb')}.
         """
+        stats_only = self._stats_only_banks()
         cat, cat_stats = {}, {}
         for n in self.bank_names:
+            if n in stats_only:
+                cat_stats[n] = self._streamed_stats(n)
+                continue
             cat[n] = torch.cat(self._bank_acc[n])
             self._bank_acc[n] = []
             cat_stats[n] = (float(cat[n].mean()), float(cat[n].std()))
+        self._stats_acc = {}
         if self.fix_cross_stats or stats_pairs is None:
             stats_pairs = {n: (n, n) for n in self.bank_names}
         for n in self.bank_names:
             msrc, ssrc = stats_pairs[n]
             self.stats[n] = (cat_stats[msrc][0], cat_stats[ssrc][1])
-        for n in self.bank_names:
+        for n in list(cat):
             bank = cat.pop(n)
             if n in norm_names:
                 mean, std = self.stats[n]

@@ -6,6 +6,8 @@
                 -> Point-MAE group features (B, G, 768)
                 -> 3-NN IDW interpolation onto the full H*W grid
                 -> 3x3-valid + adaptive average pool to 56² -> (B, 3136, 768)
+                [-> and to 28², xyz_patch_2828 (B, 784, 768), for the
+                   rgb + fxyz feature dumps]
 """
 
 from __future__ import annotations
@@ -24,21 +26,26 @@ from cmdiad_tpu_torch.ops.masked import compact_points, nonzero_point_mask
 from cmdiad_tpu_torch.ops.pooling import adaptive_avg_pool, avg3x3_then_adaptive_pool
 
 
-def init_weights(module: nn.Module, seed: int) -> None:
+def init_weights(module: nn.Module, seed: int, fan_in_scaled: bool = False) -> None:
     """Random weights from a seeded ``torch.Generator``: normal(0, 0.02)
-    for matrices, convolutions and embeddings, zeros for biases, ones for
-    norm scales, identity BatchNorm statistics."""
+    for matrices, convolutions and embeddings (with ``fan_in_scaled``,
+    normal(0, 1/sqrt(fan in)) for matrices and convolutions), zeros for
+    biases, ones for norm scales, 1e-5 for LayerScale, identity BatchNorm
+    statistics."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
-            if isinstance(owner, (nn.LayerNorm, nn.BatchNorm1d)):
+            if isinstance(owner, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
                 p.fill_(1.0 if leaf == "weight" else 0.0)
             elif leaf == "bias":
                 p.zero_()
+            elif leaf == "gamma":
+                p.fill_(1e-5)
             else:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+                std = p[0].numel() ** -0.5 if fan_in_scaled and p.dim() > 1 else 0.02
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
         for name, buf in module.named_buffers():
             if name.endswith("running_mean") or name.endswith("num_batches_tracked"):
                 buf.zero_()
@@ -97,9 +104,11 @@ class DualBackbone:
         return rgb_patch.to(torch.float32), rgb_patch2.to(torch.float32)
 
     @torch.no_grad()
-    def xyz_patches(self, organized_pc: torch.Tensor, compact_pts=None) -> dict:
+    def xyz_patches(self, organized_pc: torch.Tensor, compact_pts=None,
+                    with_2828: bool = False) -> dict:
         """organized_pc (B, H, W, 3) -> dict with xyz_patch (B, 3136, 768),
-        centers, ori_idx, center_idx and group_feats.
+        centers, ori_idx, center_idx and group_feats, and with ``with_2828``
+        xyz_patch_2828 (B, 784, 768), the same grid pooled to 28².
 
         ``compact_pts`` (B, capacity, 3): valid points already compacted on
         the host (``ops.masked.host_compact_points``); otherwise the grid
@@ -124,16 +133,21 @@ class DualBackbone:
                                       compute_dtype=self.compute_dtype)
         grid = interp.reshape(b, h, w, -1)
         xyz_patch = avg3x3_then_adaptive_pool(grid, 56).reshape(b, 56 * 56, -1)
-        return {"xyz_patch": xyz_patch.to(torch.float32), "centers": centers,
-                "ori_idx": ori_idx, "center_idx": center_idx,
-                "group_feats": feats}
+        out = {"xyz_patch": xyz_patch.to(torch.float32), "centers": centers,
+               "ori_idx": ori_idx, "center_idx": center_idx,
+               "group_feats": feats}
+        if with_2828:
+            out["xyz_patch_2828"] = avg3x3_then_adaptive_pool(grid, 28).reshape(
+                b, 28 * 28, -1).to(torch.float32)
+        return out
 
-    def extract(self, images=None, organized_pc=None, compact_pts=None) -> dict:
+    def extract(self, images=None, organized_pc=None, compact_pts=None,
+                with_2828: bool = False) -> dict:
         """Features of whichever modalities are given (reference
         ``Features.__call__``)."""
         out = {}
         if images is not None:
             out["rgb_patch"], out["rgb_patch2"] = self.rgb_patches(images)
         if organized_pc is not None:
-            out.update(self.xyz_patches(organized_pc, compact_pts))
+            out.update(self.xyz_patches(organized_pc, compact_pts, with_2828))
         return out

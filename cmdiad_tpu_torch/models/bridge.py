@@ -2,12 +2,14 @@
 
 Takes the numpy pytree that ``jax.device_get(DualBackbone.init_params(seed))``
 gives in the JAX package (or a converted checkpoint in that layout) and
-returns state dicts for ``models.vit.VisionTransformer`` and
-``models.point_mae.PointTransformer``: Dense kernels (in, out) -> Linear
-weights (out, in), Conv kernels HWIO -> OIHW, kernel-1 Conv1d weights
-(out, in, 1), LayerNorm/BatchNorm ``scale``/``bias`` -> ``weight``/``bias``,
-and BatchNorm ``batch_stats`` mean/var -> running statistics.  The names are
-timm's and Point-MAE's, the inverse of the JAX package's checkpoint
+returns state dicts for ``models.vit.VisionTransformer`` (DINO and
+DINOv2), ``models.point_mae.PointTransformer`` (Point-MAE and Point-BERT)
+and the MTFI fusion nets (``models.hallucination``, ``models.hrnet``):
+Dense kernels (in, out) -> Linear weights (out, in), Conv kernels HWIO ->
+OIHW, kernel-1 Conv1d weights (out, in, 1), LayerNorm/BatchNorm
+``scale``/``bias`` -> ``weight``/``bias``, and BatchNorm ``batch_stats``
+mean/var -> running statistics.  The names are timm's, Point-MAE's and the
+reference fusion nets', the inverse of the JAX package's checkpoint
 converters.
 """
 
@@ -39,6 +41,12 @@ def _norm(sd, name, p):
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _conv2d(sd, name, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
 def _batchnorm(sd, name, p, stats):
     _norm(sd, name, p)
     sd[f"{name}.running_mean"] = _t(stats["mean"])
@@ -50,12 +58,15 @@ def vit_state_dict(variables) -> Dict[str, torch.Tensor]:
     """Flax ``VisionTransformer`` variables -> timm-named state dict."""
     p = variables["params"]
     sd = {"cls_token": _t(p["cls_token"]), "pos_embed": _t(p["pos_embed"])}
-    sd["patch_embed.proj.weight"] = _t(
-        np.asarray(p["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
-    sd["patch_embed.proj.bias"] = _t(p["patch_embed"]["bias"])
+    if "reg_token" in p:
+        sd["reg_token"] = _t(p["reg_token"])
+    _conv2d(sd, "patch_embed.proj", p["patch_embed"])
     depth = sum(1 for k in p if k.startswith("blocks_"))
     for i in range(depth):
         b, t = p[f"blocks_{i}"], f"blocks.{i}"
+        if "ls1" in b:
+            sd[f"{t}.ls1.gamma"] = _t(b["ls1"])
+            sd[f"{t}.ls2.gamma"] = _t(b["ls2"])
         _norm(sd, f"{t}.norm1", b["norm1"])
         _linear(sd, f"{t}.attn.qkv", b["attn"]["qkv"])
         _linear(sd, f"{t}.attn.proj", b["attn"]["proj"])
@@ -67,12 +78,15 @@ def vit_state_dict(variables) -> Dict[str, torch.Tensor]:
 
 
 def point_mae_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """Flax ``PointTransformer`` variables -> Point-MAE-named state dict."""
+    """Flax ``PointTransformer`` variables -> Point-MAE-named state dict
+    (with Point-BERT's ``reduce_dim``, ``cls_token`` and ``cls_pos``)."""
     p, stats = variables["params"], variables["batch_stats"]
-    if "reduce_dim" in p or "cls_token" in p:
-        raise NotImplementedError("the Point-BERT flavour is not ported yet")
     e, es = p["encoder"], stats["encoder"]
     sd: Dict[str, torch.Tensor] = {}
+    if "reduce_dim" in p:
+        _linear(sd, "reduce_dim", p["reduce_dim"])
+        sd["cls_token"] = _t(p["cls_token"])
+        sd["cls_pos"] = _t(p["cls_pos"])
     _conv1d(sd, "encoder.first_conv.0", e["first_conv_0"])
     _batchnorm(sd, "encoder.first_conv.1", e["first_conv_1"], es["first_conv_1"])
     _conv1d(sd, "encoder.first_conv.3", e["first_conv_3"])
@@ -91,6 +105,67 @@ def point_mae_state_dict(variables) -> Dict[str, torch.Tensor]:
         _linear(sd, f"{t}.mlp.fc1", b["mlp_fc1"])
         _linear(sd, f"{t}.mlp.fc2", b["mlp_fc2"])
     _norm(sd, "norm", p["norm"])
+    return sd
+
+
+def ftof_mlp_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """Flax ``FtoFMlp`` variables -> ``models.hallucination.FtoFMlp``."""
+    p, sd = variables["params"], {}
+    for side in ("xyz", "rgb"):
+        _norm(sd, f"{side}_norm", p[f"{side}_norm"])
+        for d in range(len(p[f"{side}_mlp"])):
+            for fc in ("fc1", "fc2", "fc3"):
+                _linear(sd, f"{side}_mlp.mlp_module.{d}.{fc}",
+                        p[f"{side}_mlp"][f"block_{d}"][fc])
+    return sd
+
+
+def ftof_conv_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """Flax ``FtoFConv`` variables -> ``models.hallucination.FtoFConv``
+    (``{side}_conv.{0,3,6,9}`` convs, ``.{1,4,7}`` BatchNorms)."""
+    p, stats, sd = variables["params"], variables["batch_stats"], {}
+    for side in ("xyz", "rgb"):
+        sp, ss = p[f"{side}_conv"], stats[f"{side}_conv"]
+        for j in range(4):
+            _conv2d(sd, f"{side}_conv.{3 * j}", sp[f"conv_{j}"])
+        for j in range(3):
+            _batchnorm(sd, f"{side}_conv.{3 * j + 1}", sp[f"bn_{j}"], ss[f"bn_{j}"])
+    return sd
+
+
+def ftoi_mlp_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """Flax ``FtoIMlp`` variables -> ``models.hallucination.FtoIMlp``."""
+    p, sd = variables["params"], {}
+    _norm(sd, "rgb_norm", p["norm"])
+    for j in range(4):
+        _linear(sd, f"mlp.{2 * j}", p[f"mlp_{j}"])
+    return sd
+
+
+def ftoi_conv_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """Flax ``FtoIConv`` variables -> ``models.hallucination.FtoIConv``."""
+    sd = {}
+    for j in (1, 2, 3, 4):
+        _conv2d(sd, f"conv{j}", variables["params"][f"conv{j}"])
+    return sd
+
+
+def hrnet_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """Flax ``HRNet`` variables -> ``models.hrnet.HRNet``."""
+    p, stats, sd = variables["params"], variables["batch_stats"], {}
+    for i in (1, 2):
+        _conv2d(sd, f"conv{i}", p[f"conv{i}"])
+        _batchnorm(sd, f"bn{i}", p[f"bn{i}"], stats[f"bn{i}"])
+    for layer in (1, 2, 3):
+        for i in range(4):
+            bp, bs, t = p[f"layer{layer}_{i}"], stats[f"layer{layer}_{i}"], f"layer{layer}.{i}"
+            for j in (1, 2, 3):
+                _conv2d(sd, f"{t}.conv{j}", bp[f"conv{j}"])
+                _batchnorm(sd, f"{t}.bn{j}", bp[f"bn{j}"], bs[f"bn{j}"])
+            if "down_conv" in bp:
+                _conv2d(sd, f"{t}.downsample.0", bp["down_conv"])
+                _batchnorm(sd, f"{t}.downsample.1", bp["down_bn"], bs["down_bn"])
+    _conv2d(sd, "final_layer", p["final_layer"])
     return sd
 
 

@@ -1,7 +1,8 @@
-"""Point-MAE point-cloud backbone in PyTorch with masked grouping.
+"""Point-MAE and Point-BERT point-cloud backbones in PyTorch with masked
+grouping.
 
 The reference ``PointTransformer`` (Point_MAE flavour: encoder_dims ==
-trans_dim == 384, no cls token):
+trans_dim == 384, no cls token; the Point-BERT flavour below):
 
   Group        masked FPS -> G=1024 centers, exact KNN -> M=128 neighbours.
   Encoder      per-group mini-PointNet: Conv1d(3->128)+BN+ReLU+Conv1d(128->256),
@@ -11,6 +12,11 @@ trans_dim == 384, no cls token):
                position embedding is added at every block input.  Features
                after blocks {3, 11}, each through the shared final
                LayerNorm, concatenated to 768 channels.
+
+Point-BERT (``encoder_dims`` 256 != ``trans_dim``): the encoder's tokens go
+through ``reduce_dim`` to 384 wide, a learned ``cls_token``/``cls_pos`` is
+prepended to the tokens and to the position embedding, and cls is dropped
+from each fetched layer after the final LayerNorm.
 
 Module names follow the Point-MAE checkpoint (``encoder.first_conv.0``,
 ``blocks.blocks.{i}.attn.qkv``, ...), so a prefix-stripped checkpoint loads
@@ -128,11 +134,15 @@ class PointTransformer(nn.Module):
     def __init__(self, config: PointMAEConfig = PointMAEConfig(),
                  dtype: torch.dtype = torch.float32, use_flash: bool = False):
         super().__init__()
-        if config.encoder_dims != config.trans_dim:
-            raise NotImplementedError("the Point-BERT flavour is not ported yet")
         c = self.config = config
         self.dtype = dtype
         self.encoder = GroupEncoder(c.encoder_dims)
+        # Point-BERT: project the tokens and prepend a learned cls token
+        self.with_cls = c.encoder_dims != c.trans_dim
+        if self.with_cls:
+            self.reduce_dim = nn.Linear(c.encoder_dims, c.trans_dim)
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, c.trans_dim))
+            self.cls_pos = nn.Parameter(torch.zeros(1, 1, c.trans_dim))
         self.pos_embed = nn.Sequential(
             nn.Linear(3, 128), nn.GELU(), nn.Linear(128, c.trans_dim))
         self.blocks = _Blocks(c, use_flash)
@@ -143,9 +153,15 @@ class PointTransformer(nn.Module):
         x = self.encoder(points.to(dt), centers.to(dt), idx)
         pos = linear(self.pos_embed[2],
                      F.gelu(linear(self.pos_embed[0], centers.to(dt))))
+        if self.with_cls:
+            b = x.shape[0]
+            x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1),
+                           linear(self.reduce_dim, x)], dim=1)
+            pos = torch.cat([self.cls_pos.to(dt).expand(b, -1, -1), pos], dim=1)
+        first = 1 if self.with_cls else 0
         fetched = []
         for i, blk in enumerate(self.blocks.blocks):
             x = blk(x + pos)
             if i in c.fetch_idx:
-                fetched.append(layer_norm(self.norm, x))
+                fetched.append(layer_norm(self.norm, x)[:, first:])
         return torch.cat(fetched, dim=-1)

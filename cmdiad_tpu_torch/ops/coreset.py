@@ -61,11 +61,17 @@ def sparse_random_projection(x: torch.Tensor, eps: float = 0.9, seed: int = 0,
 
 
 def _dist_to(z: torch.Tensor, point: torch.Tensor, metric: str) -> torch.Tensor:
+    """Distances in z's dtype, rounded as the JAX package's compiled loop
+    rounds them: the differences in z's dtype, their squares (or absolute
+    values) summed in float32, the sum rounded to z's dtype, then the root.
+    Rounding each bfloat16 square, as an eager bfloat16 product would, moves
+    distances by an ulp and changes the greedy picks."""
     if metric == "l2":
-        diff = z - point[None, :]
-        return torch.sqrt(torch.sum(diff * diff, dim=1))
+        diff = (z - point[None, :]).to(torch.float32)
+        return torch.sqrt(torch.sum(diff * diff, dim=1).to(z.dtype))
     if metric == "l1":
-        return torch.sum(torch.abs(z - point[None, :]), dim=1)
+        diff = (z - point[None, :]).to(torch.float32)
+        return torch.sum(torch.abs(diff), dim=1).to(z.dtype)
     if metric == "cos_dist":
         zn = z / torch.clamp_min(torch.linalg.norm(z, dim=1, keepdim=True), 1e-30)
         pn = point / torch.clamp_min(torch.linalg.norm(point), 1e-30)

@@ -7,6 +7,8 @@ builds, so both packages compute the same linear maps:
   * ``adaptive_avg_pool``          nn.AdaptiveAvgPool2d
   * ``bilinear_resize``            F.interpolate(mode='bilinear',
                                    align_corners=False)
+  * ``bicubic_resize``             F.interpolate(mode='bicubic',
+                                   align_corners=False) itself
   * ``avg3x3_then_adaptive_pool``  nn.AvgPool2d(3, stride=1) then
                                    AdaptiveAvgPool2d, as one operator
 """
@@ -17,6 +19,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,6 +88,16 @@ def bilinear_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
     oh, ow = _pair(out_hw)
     return _apply_separable(x, _bilinear_matrix(x.shape[-3], oh),
                             _bilinear_matrix(x.shape[-2], ow))
+
+
+def bicubic_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """F.interpolate(mode='bicubic', align_corners=False) on a channels-last
+    (B, H, W, C) tensor: Keys' kernel with A = -0.75 and edge-clamped taps,
+    the separable band matrices of the JAX package's ``bicubic_resize``.
+    Computed in float32, returned in the input's dtype."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(torch.float32), size=_pair(out_hw),
+                      mode="bicubic", align_corners=False)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def avg3x3_then_adaptive_pool(x: torch.Tensor, out_hw) -> torch.Tensor:

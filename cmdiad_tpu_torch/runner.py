@@ -11,8 +11,9 @@ With ``cfg.bank_cache_dir`` a class's fitted state is served from
 ``<dir>/<class>.npz`` when its config fingerprint matches, and a fresh fit
 is persisted there; a mismatched or unreadable file is logged and refit.
 
-``run_detection`` runs several classes on one backbone, decoding the next
-class on a thread while the current one runs on the card.
+``run_detection`` runs several classes on one backbone and one MTFI
+fusion net, decoding the next class on a thread while the current one runs
+on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.data.loader import iter_samples, stack_batches
 from cmdiad_tpu_torch.data.mvtec3d import MVTec3DDataset
 from cmdiad_tpu_torch.methods.base import StateFingerprintMismatch
-from cmdiad_tpu_torch.methods.registry import build_backbone, build_method
+from cmdiad_tpu_torch.methods.registry import build_backbone, build_fusion, build_method
 
 log = logging.getLogger("cmdiad_tpu_torch")
 
@@ -45,9 +46,9 @@ def _train_split(cfg: Config) -> str:
 
 
 class CMDIADRunner:
-    def __init__(self, cfg: Config, backbone=None, device="cuda"):
+    def __init__(self, cfg: Config, backbone=None, device="cuda", fusion=None):
         self.cfg = cfg.validate()
-        self.method = build_method(cfg, backbone=backbone, device=device)
+        self.method = build_method(cfg, backbone=backbone, device=device, fusion=fusion)
         self.timings: Dict[str, float] = {}
 
     def _now(self) -> float:
@@ -150,7 +151,8 @@ def preload_class_samples(cfg: Config, class_name: str) -> Dict[str, List[dict]]
 
 def run_detection(cfg: Config, classes: List[str], backbone=None, device="cuda",
                   on_class_done: Optional[Callable] = None) -> Dict[str, Dict[str, float]]:
-    """fit + evaluate over ``classes`` on one backbone; returns {class: metrics}.
+    """fit + evaluate over ``classes`` on one backbone and one fusion net;
+    returns {class: metrics}.
 
     The first class streams from disk; with ``cfg.preload_next_class`` each
     later class is decoded on a thread while the one before it runs.  A
@@ -159,6 +161,7 @@ def run_detection(cfg: Config, classes: List[str], backbone=None, device="cuda",
     cfg = cfg.validate()
     if backbone is None:
         backbone = build_backbone(cfg, device)
+    fusion = build_fusion(cfg, backbone, backbone.device)
     results: Dict[str, Dict[str, float]] = {}
     box: Dict[str, Dict[str, List[dict]]] = {}
     errors: Dict[str, BaseException] = {}
@@ -177,7 +180,8 @@ def run_detection(cfg: Config, classes: List[str], backbone=None, device="cuda",
                                        daemon=True)
             pending.start()
         try:
-            runner = CMDIADRunner(cfg, backbone=backbone, device=backbone.device)
+            runner = CMDIADRunner(cfg, backbone=backbone, device=backbone.device,
+                                  fusion=fusion)
             runner.fit(cls, train_samples=data["train"] if data else None)
             results[cls] = runner.evaluate(cls, test_samples=data["test"] if data else None)
             if on_class_done:

@@ -119,6 +119,21 @@ def test_fps_kernel_matches_plain_above_32768_points(dev, rng, b, p, clusters):
     assert bool((got[1] == 0).all())
 
 
+@pytest.mark.parametrize("b", [2, 8])
+def test_fps_kernel_matches_plain_on_a_dense_hallucinated_cloud(dev, rng, b):
+    """The FtoI rgb-main path: every point of a regressed 224² cloud (P
+    50176, all valid) at G 1024, both cluster sizes and the card's choice;
+    indices equal the plain version's."""
+    p, g = 224 * 224, 1024
+    pts = torch.from_numpy(
+        0.5 + 0.05 * rng.normal(size=(b, p, 3)).astype(np.float32)).to(dev)
+    mask = nonzero_point_mask(pts)
+    assert bool(mask.all())
+    want = fps._fps_plain(pts, mask, g)
+    for clusters in (0, 8, 16):
+        assert torch.equal(fps._fps_cuda(pts, mask, g, clusters=clusters), want)
+
+
 def _interp_inputs(rng, dev, b=2, p=5000, g=256, d=96):
     pts = rng.normal(size=(b, p, 3)).astype(np.float32)
     pts[rng.random((b, p)) < 0.2] = 0.0
@@ -308,14 +323,17 @@ def _qkv(rng, dev, dtype, b=2, n=135, h=3):
 
 
 @pytest.mark.parametrize("n,b,h", [(64, 2, 3), (135, 2, 3), (785, 2, 3),
-                                   (1024, 2, 3), (785, 8, 12), (1024, 8, 6)])
+                                   (1024, 2, 3), (785, 8, 12), (1024, 8, 6),
+                                   (1370, 8, 12), (1025, 8, 6)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_kernel_matches_plain(dev, rng, dtype, n, b, h):
     """float32: summation order only.  bfloat16: the same rounding points,
     so an element differs where a float32 sum rounds to the other bfloat16
     neighbour: one output ulp (2^-7 relative) plus a p ulp.  The backbones'
     shapes (B 8, ViT 12 heads x 785, Point-MAE 6 x 1024) take the two CTA
-    shapes of the bfloat16 kernel; two launches agree bit for bit."""
+    shapes of the bfloat16 kernel, as do DINOv2 at 518² (12 x 1370) and
+    Point-BERT (6 x 1025 with its cls token), whose key tiles end ragged;
+    two launches agree bit for bit."""
     q, k, v = _qkv(rng, dev, dtype, b=b, n=n, h=h)
     before = kernels.LAUNCHES["flash_attn"]
     got = fa.fused_attention(q, k, v, 0.125, use_flash=True)
@@ -451,3 +469,67 @@ def test_small_double_method_on_the_card(dev, path):
                                rtol=tol[0])
     assert np.abs(maps_gpu - maps_cpu).max() <= tol[1] * scale
     assert np.abs(maps_gpu - maps_cpu).mean() <= tol[2] * scale
+
+
+MTFI_KERNELS = {"mtfi_ftof_xyz_main": {"bank_min", "fps", "interp"},
+                "mtfi_itof_rgb_main": {"bank_min"}}
+
+
+@pytest.mark.parametrize("preset", list(MTFI_KERNELS))
+def test_small_mtfi_method_on_the_card(dev, preset):
+    """An MTFI preset at a small width (head dim 64, bank widths multiples
+    of 128): fit on both modalities, evaluate on the main one alone, only
+    the main path's kernels launched while evaluating; the CPU serving the
+    card's fitted state with a CPU copy of the same fusion net predicts the
+    same within the near-tie envelope of test_small_double_method_on_the_card."""
+    import copy
+    import os
+    import tempfile
+    from cmdiad_tpu_torch.config import method_preset
+    from cmdiad_tpu_torch.data.loader import stack_batches
+    from cmdiad_tpu_torch.data.synthetic import make_synthetic_samples
+    from cmdiad_tpu_torch.methods.registry import build_method
+    from cmdiad_tpu_torch.models.backbone import DualBackbone
+    from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
+    from cmdiad_tpu_torch.models.vit import ViTConfig
+    from cmdiad_tpu_torch.runner import CMDIADRunner
+
+    size = 64
+    cfg = method_preset(preset, rgb_size=size, xyz_size=size, gt_size=size,
+                        f_coreset=0.5, batch_size=3)
+    train, test = make_synthetic_samples(n_train=5, size=size,
+                                         anomaly_radius=(0.13, 0.18))
+    keep = (("rgb",) if cfg.main_modality == "rgb"
+            else ("organized_pc", "points_compact")) + ("gt", "label", "rgb_path")
+    test = [{k: v for k, v in s.items() if k in keep} for s in test]
+
+    def backbone(device):
+        return DualBackbone(
+            vit_config=ViTConfig(img_size=size, embed_dim=128, depth=2, num_heads=2),
+            pm_config=PointMAEConfig(num_group=32, group_size=16, encoder_dims=128,
+                                     trans_dim=128, depth=2, num_heads=2,
+                                     fetch_idx=(0, 1)),
+            device=device)
+
+    runner = CMDIADRunner(cfg, backbone=backbone(dev), device=dev)
+    runner.fit("widget", train)
+    kernels.reset_launches()
+    metrics = runner.evaluate("widget", test)
+    used = {k for k, n in kernels.LAUNCHES.items() if n > 0}
+    assert used == MTFI_KERNELS[preset], kernels.LAUNCHES
+    assert all(0.0 <= v <= 1.0 for v in metrics.values()), metrics
+    assert set(runner.method.banks) == {cfg.main_modality, "fusion"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        runner.method.save_state(path)
+        cpu = build_method(cfg, backbone=backbone("cpu"), device="cpu",
+                           fusion=copy.deepcopy(runner.method.fusion).to("cpu"))
+        cpu.load_state(path)
+    for batch in stack_batches(test, 3):
+        cpu.predict_batch(batch)
+    maps_gpu = np.stack(runner.method.predictions)
+    maps_cpu = np.stack(cpu.predictions)
+    scale = np.abs(maps_cpu).max()
+    np.testing.assert_allclose(cpu.image_preds, runner.method.image_preds, rtol=1e-4)
+    assert np.abs(maps_gpu - maps_cpu).max() <= 2e-2 * scale
+    assert np.abs(maps_gpu - maps_cpu).mean() <= 1e-3 * scale

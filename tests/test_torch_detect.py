@@ -350,6 +350,11 @@ def test_presets_build_configs_and_mtfi_is_refused(backbones):
     assert method_preset("dual").method_name == "DINO+Point_MAE"
     with pytest.raises(KeyError):
         method_preset("nope")
+    # the MTFI presets build (no longer refused): the method and its
+    # fusion net, the FtoF MLP between the small backbones' widths
+    from cmdiad_tpu_torch.methods.variants import HallucinationMethod
+    from cmdiad_tpu_torch.models.hallucination import FtoFMlp
     cfg = method_preset("mtfi_ftof_xyz_main", rgb_size=SIZE)
-    with pytest.raises(NotImplementedError, match="WithHallucination"):
-        build_method(cfg, backbone=backbones[2])
+    method = build_method(cfg, backbone=backbones[2])
+    assert type(method) is HallucinationMethod and isinstance(method.fusion, FtoFMlp)
+    assert method.fusion.xyz_norm.normalized_shape == (32,)

@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -126,9 +127,20 @@ def test_config_matches_the_jax_package():
 @pytest.mark.parametrize("preset", ["mtfi_ftof_xyz_main", "mtfi_itof_rgb_main",
                                     "mtfi_ftoi_xyz_main"])
 def test_unported_methods_raise(preset):
-    """The MTFI methods are not ported yet: their presets build a Config,
-    and ``build_method`` refuses it before building a backbone."""
+    """The MTFI presets, once refused, now build on the CPU with the tiny
+    backbones and a seeded random fusion net, fit two samples and predict
+    one batch of two."""
     from cmdiad_tpu_torch.config import method_preset
-    from cmdiad_tpu_torch.methods.registry import build_method
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_method(method_preset(preset), device="cpu")
+    from cmdiad_tpu_torch.data.synthetic import make_synthetic_samples
+    from cmdiad_tpu_torch.runner import CMDIADRunner
+    cfg = method_preset(preset, rgb_backbone_name="tiny", xyz_backbone_name="tiny",
+                        rgb_size=64, xyz_size=64, gt_size=64, num_group=32,
+                        group_size=16, f_coreset=1.0, batch_size=2)
+    runner = CMDIADRunner(cfg, device="cpu")
+    assert runner.method.fusion is not None
+    train, test = make_synthetic_samples(n_train=2, n_test_good=1, n_test_bad=1,
+                                         size=64, anomaly_radius=(0.13, 0.18))
+    runner.fit("widget", train)
+    metrics = runner.evaluate("widget", test)
+    assert all(0.0 <= v <= 1.0 for v in metrics.values()), metrics
+    assert np.stack(runner.method.predictions).shape == (2, 64, 64)

@@ -247,6 +247,18 @@ def test_greedy_kcenter_matches(rng, dtype):
     assert got[0] == 0 and len(set(got.tolist())) == 60
 
 
+@pytest.mark.parametrize("n, d", [(1280, 48), (15680, 64)])
+def test_greedy_kcenter_bf16_picks_the_jax_rows_at_bank_size(n, d):
+    """FP16 over a tenth of a bank's rows: the bfloat16 distances round as
+    the JAX package's compiled loop rounds them (squares summed in float32,
+    the sum rounded once), so every pick agrees; rounding each square to
+    bfloat16 first put another row at 18 and 1216 of these positions."""
+    z = np.random.default_rng(0).normal(size=(n, d)).astype(np.float32)
+    got = coreset.greedy_kcenter(_t(z), n // 10, compute_dtype="FP16").numpy()
+    want = np.asarray(jcore.greedy_kcenter(jnp.asarray(z), n // 10, compute_dtype="FP16"))
+    np.testing.assert_array_equal(got, want)
+
+
 def test_coreset_select_falls_back_to_the_raw_bank(rng):
     bank = rng.normal(size=(300, 16)).astype(np.float32)   # JL dim > 16
     got = coreset.coreset_select(_t(bank), 0.2, compute_dtype="FP32").numpy()
