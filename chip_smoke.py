@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --profile DIR  # also profile one evaluation pass
-                                         # of each path into DIR
+                                         # of each path and one training
+                                         # step of each train method into DIR
 
 Phases:
   1. build the hand-written CUDA kernels from ``cmdiad_tpu_torch/csrc``;
@@ -50,7 +51,19 @@ Phases:
      ``rgb_ckpt_path``, ``xyz_ckpt_path`` and ``fusion_module_path`` to the
      in-memory weights' outputs.  Phase 2 also holds FPS and the
      interpolation over a dense 50176-point cloud, and attention at DINOv2's 1370 and Point-BERT's 1025
-     tokens against their plain versions.
+     tokens against their plain versions;
+  7. the MTFI lifecycle with training, at the same width: ``DINO+Point_MAE``
+     fits and evaluates phase 3's samples writing the three feature stores
+     (FPS, interpolation and the bf16 bank-min launched, int8 bank-min and
+     attention not); each of the eight train methods trains 2 epochs at
+     batch 8 from them (FtoFMlp also in bfloat16 and with
+     ``accum_iter=2``), a checkpoint every epoch, and one step of each,
+     resumed from its last checkpoint, is held against the same step on a
+     CPU copy; each method's step is timed at batch 64 in float32 and
+     bfloat16 beside its FLOP bound and peak memory; the trained FtoF and
+     HRNet checkpoints serve ``mtfi_ftof_xyz_main`` and
+     ``mtfi_itof_rgb_main`` through ``fusion_module_path``, each
+     evaluating from its main modality with its launch check.
 
 Prints the card, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -1167,11 +1180,268 @@ def phase_backbones(dev, card: str):
               + ", ".join(f"{e:.1e}" for e in errs) + " of the largest value")
 
 
+# --------------------------------------------------------------------------
+# phase 7: the MTFI lifecycle, training included
+# --------------------------------------------------------------------------
+
+# train method -> the feature store (stage 1's dumps) it trains from
+TRAIN_STORES = {
+    "HallucinationCrossModality": "fusion",
+    "HallucinationCrossModalityConv": "fusion",
+    "RGBFeatureToXYZInputMLP": "frgb_xyz",
+    "XYZFeatureToRGBInputMLP": "rgb_fxyz",
+    "RGBFeatureToXYZInputConv": "frgb_xyz",
+    "XYZFeatureToRGBInputConv": "rgb_fxyz",
+    "RGBInputToXYZFeatureHRNET": "rgb_fxyz",
+    "XYZInputToRGBFeatureHRNET": "frgb_xyz",
+}
+# FtoFMlp's extra runs: bfloat16 compute, gradient accumulation
+TRAIN_VARIANTS = {"bfloat16": dict(compute_dtype="bfloat16"), "accum_iter=2": dict(accum_iter=2)}
+# one step on the card against the same step on a CPU copy (same checkpoint,
+# same batch of 2; limits fixed before the first run): the loss to rtol
+# 1e-4 and each BatchNorm statistic to 1e-4 of its leaf's largest value in
+# float32 (summation order, cuDNN's algorithm); each updated parameter to
+# 1e-4 of its leaf's largest value in float64, because float32 keeps only
+# about two digits of some BatchNorm nets' gradients (a BatchNorm bias
+# followed by ReLU, a conv and another BatchNorm: its gradient cancels down
+# to border effects), which Adam's normalised step would carry into the
+# parameters on either device
+TRAIN_RTOL = 1e-4
+TRAIN_BATCH = 64   # the reference's batch, for the step times
+# phase 7's MTFI presets serving a trained net: preset -> train method
+TRAINED_PRESETS = {"mtfi_ftof_xyz_main": "HallucinationCrossModality",
+                   "mtfi_itof_rgb_main": "RGBInputToXYZFeatureHRNET"}
+
+
+def _leaf_err(got: dict, want: dict) -> float:
+    """The largest max|Δ| / max|leaf| over the leaves of two flat maps."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = float(np.abs(w).max())
+        err = float(np.abs(np.asarray(got[k], np.float64) - w).max())
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def _to_float64(trainer) -> None:
+    """The trainer's net and optimizer state in float64, in place."""
+    import torch
+    trainer.net.double()
+    trainer.net.dtype = torch.float64
+    for state in (trainer.opt.mu, trainer.opt.nu, trainer.opt.acc):
+        for k in state:
+            state[k] = state[k].double()
+
+
+def check_train_step(cfg, ckpt, arrays, dev, feature_dim):
+    """The step of phase 7's check: one trainer on the card and one on the
+    CPU resume ``ckpt`` and take ``accum_iter`` steps (one update) on the
+    first 2 samples, in float32 and again in float64; returns the largest
+    errors (loss, BatchNorm statistics, parameters)."""
+    import torch
+    from cmdiad_tpu_torch.models import names
+    from cmdiad_tpu_torch.train.checkpoint import flatten
+    from cmdiad_tpu_torch.train.distill import DistillTrainer
+
+    cfg = cfg.replace(resume=ckpt, output_dir="")
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[:2])) for k, v in arrays.items()}
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        runs = {}
+        for d in (dev, "cpu"):
+            t = DistillTrainer(cfg, feature_dim, arrays=arrays, test_arrays=arrays, device=d)
+            if dtype == torch.float64:
+                _to_float64(t)
+            losses = [float(t.step({k: v.to(t.device, dtype) for k, v in batch.items()})[0])
+                      for _ in range(cfg.accum_iter)]
+            runs[d] = (losses, flatten(names.to_flax(t.table, t.net.state_dict())))
+        (card_loss, card), (cpu_loss, cpu) = runs[dev], runs["cpu"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+        assert loss_err <= TRAIN_RTOL, (cfg.train_method, dtype, card_loss, cpu_loss)
+        stats = {k: v for k, v in cpu.items() if k.startswith("batch_stats")}
+        params = {k: v for k, v in cpu.items() if k.startswith("params")}
+        out[dtype] = (loss_err, _leaf_err(card, stats) if stats else 0.0,
+                      _leaf_err(card, params))
+        if dtype == torch.float32:
+            assert out[dtype][1] <= TRAIN_RTOL, (cfg.train_method, "batch_stats", out[dtype])
+        else:
+            assert out[dtype][2] <= TRAIN_RTOL, (cfg.train_method, "params", out[dtype])
+    return out
+
+
+def time_train_step(cfg, shapes, dev, gen, feature_dim, profile=None):
+    """ms a training step at batch 64 (5 steps after 2 warm-up steps,
+    between CUDA events, no host sync inside), the peak device memory, and
+    the step's counted FLOPs (``torch.utils.flop_counter`` over one step at
+    batch 2, times 32); with ``profile``, kernel time by name over one more
+    step, written to <profile>/profile_train_<method>_<dtype>.txt."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from cmdiad_tpu_torch.train.distill import DistillTrainer
+
+    placeholder = {k: np.zeros((TRAIN_BATCH, 1), np.float32) for k in shapes}
+    trainer = DistillTrainer(cfg, feature_dim, arrays=placeholder,
+                             test_arrays=placeholder, device=dev)
+    batch = {k: torch.randn((TRAIN_BATCH, *shape), generator=gen, device=dev)
+             for k, shape in shapes.items()}
+    small = {k: v[:2] for k, v in batch.items()}
+    with FlopCounterMode(display=False) as counter:
+        trainer.step(small)
+    flops = counter.get_total_flops() * TRAIN_BATCH / 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        trainer.step(batch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        trainer.step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.step(batch)
+            torch.cuda.synchronize()
+        os.makedirs(profile, exist_ok=True)
+        name = f"profile_train_{cfg.train_method}_{cfg.compute_dtype}.txt"
+        with open(os.path.join(profile, name), "w") as f:
+            f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return ms, peak, flops
+
+
+def phase_train(dev, samples, card: str, profile=None):
+    """Stage 1: ``DINO+Point_MAE`` at full width writes the three feature
+    stores; stage 2: each train method trains 2 epochs at batch 8 from them
+    (FtoFMlp also in bfloat16 and with accumulation), a step of each held
+    against the CPU, and every method's step timed at batch 64 in float32
+    and bfloat16; stage 3: two MTFI presets serve trained checkpoints."""
+    import torch
+    from cmdiad_tpu_torch import kernels
+    from cmdiad_tpu_torch.config import TRAIN_METHODS, Config, TrainConfig, method_preset
+    from cmdiad_tpu_torch.methods.registry import build_backbone
+    from cmdiad_tpu_torch.runner import CMDIADRunner
+    from cmdiad_tpu_torch.train.distill import DistillTrainer, load_training_arrays
+
+    t_phase = time.perf_counter()
+    train, test = samples
+    backbone = build_backbone(Config(seed=SEED), dev)
+    feature_dim = backbone.pm_config.out_dim    # 768, as the ViT's
+    assert backbone.vit_config.embed_dim == feature_dim
+    with tempfile.TemporaryDirectory() as tmp:
+        # stage 1: the dumps
+        stores = {k: os.path.join(tmp, k) for k in ("fusion", "frgb_xyz", "rgb_fxyz")}
+        cfg = Config(batch_size=8, seed=SEED, save_feature_for_fusion=True,
+                     save_path=stores["fusion"], save_frgb_xyz=True,
+                     save_path_frgb_xyz=stores["frgb_xyz"], save_rgb_fxyz=True,
+                     save_path_rgb_fxyz=stores["rgb_fxyz"])
+        runner = CMDIADRunner(cfg, backbone=backbone, device=dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runner.fit("synthetic", train)
+        metrics = runner.evaluate("synthetic", test)
+        torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for k in ("bank_min", "fps", "interp"):
+            assert launches[k] > 0, f"the dumping run did not launch {k}"
+        for k in ("bank_min_int8", "flash_attn"):
+            assert launches[k] == 0, f"the dumping run launched {k}"
+        for k, v in metrics.items():
+            assert np.isfinite(v) and 0.0 <= v <= 1.0, (k, v)
+        n_files = {k: len(os.listdir(os.path.join(d, "train"))) + len(os.listdir(
+            os.path.join(d, "test"))) for k, d in stores.items()}
+        assert all(n == len(train) + len(test) for n in n_files.values()), n_files
+        print(f"phase 7 stage 1: DINO+Point_MAE fit + evaluate with the three feature "
+              f"stores, {dump_s:.1f} s ({n_files} files); launches {launches}")
+
+        # stage 2: training from the dumps
+        ckpts, shapes = {}, {}
+        for tm in TRAIN_METHODS:
+            base = TrainConfig(train_method=tm, data_path=stores[TRAIN_STORES[tm]],
+                               epochs=2, batch_size=8, save_every=1, seed=SEED)
+            arrays = load_training_arrays(base, "train")
+            test_arrays = load_training_arrays(base, "test")
+            shapes[tm] = {k: v.shape[1:] for k, v in arrays.items()}
+            runs = {"float32": {}}
+            if tm == "HallucinationCrossModality":
+                runs.update(TRAIN_VARIANTS)
+            for name, extra in runs.items():
+                out = os.path.join(tmp, f"run_{tm}_{name}")
+                cfg = base.replace(output_dir=out, **extra)
+                t0 = time.perf_counter()
+                history = DistillTrainer(cfg, feature_dim, arrays=arrays,
+                                         test_arrays=test_arrays, device=dev).train().history
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                assert all(np.isfinite(history[k]).all() for k in history), history
+                assert sorted(os.listdir(out)) == ["checkpoint-0.npz", "checkpoint-1.npz",
+                                                   "metrics.jsonl"], os.listdir(out)
+                line = (f"{tm} ({name}): 2 epochs of {len(train)} samples, batch 8, "
+                        f"{train_s:.2f} s; train loss {history['train_loss']}, test loss "
+                        f"{history['test_loss']}")
+                if name == "float32":
+                    ckpts[tm] = os.path.join(out, "checkpoint-1.npz")
+                    errs = check_train_step(cfg, ckpts[tm], arrays, dev, feature_dim)
+                    line += ("; one step card vs CPU from checkpoint-1, batch 2: float32 "
+                             f"loss {errs[torch.float32][0]:.1e}, BatchNorm statistics "
+                             f"{errs[torch.float32][1]:.1e}, parameters "
+                             f"{errs[torch.float32][2]:.1e}; float64 loss "
+                             f"{errs[torch.float64][0]:.1e}, parameters "
+                             f"{errs[torch.float64][2]:.1e} of the leaf's largest")
+                print(line)
+
+        # the step times at the reference's batch
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        peaks = {"float32": PEAK_FP32, "bfloat16": PEAK_BF16}
+        for tm in TRAIN_METHODS:
+            for dtype, peak in peaks.items():
+                cfg = TrainConfig(train_method=tm, batch_size=TRAIN_BATCH, seed=SEED,
+                                  output_dir="", compute_dtype=dtype, warmup_epochs=0)
+                ms, mem, flops = time_train_step(cfg, shapes[tm], dev, gen, feature_dim,
+                                                 profile)
+                bound = flops / peak * 1e3
+                print(f"train step {tm} {dtype} batch {TRAIN_BATCH}: {ms:.2f} ms, bound "
+                      f"{bound:.2f} ms ({flops / 1e12:.2f} TFLOP counted at "
+                      f"{peak / 1e12:.0f} TFLOP/s), peak memory {mem:.1f} GiB; {card}")
+
+        # stage 3: the trained nets serve few-modal inference
+        for preset, tm in TRAINED_PRESETS.items():
+            must, must_not = MTFI_KERNELS[preset]
+            cfg = method_preset(preset, batch_size=8, seed=SEED, fusion_module_path=ckpts[tm])
+            keep = (("rgb",) if cfg.main_modality == "rgb"
+                    else ("organized_pc", "points_compact")) + _META_KEYS
+            few = [{k: v for k, v in smp.items() if k in keep} for smp in test]
+            runner = CMDIADRunner(cfg, backbone=backbone, device=dev)
+            t0 = time.perf_counter()
+            runner.fit("synthetic", train)
+            kernels.reset_launches()
+            metrics = runner.evaluate("synthetic", few)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            for k, v in metrics.items():
+                assert np.isfinite(v) and 0.0 <= v <= 1.0, (preset, k, v)
+            for k in must:
+                assert launches[k] > 0, f"{preset} did not launch {k}"
+            for k in must_not:
+                assert launches[k] == 0, f"{preset} launched {k}"
+            print(f"{preset} serving the trained {tm} checkpoint: fit + evaluate "
+                  f"{time.perf_counter() - t0:.1f} s; launches in evaluation {launches}; "
+                  f"metrics {metrics}")
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one evaluation pass of each path and "
-                         "MTFI preset (torch.profiler) and write the tables to DIR")
+                         "MTFI preset and one training step of each train "
+                         "method (torch.profiler) and write the tables to DIR")
     args = ap.parse_args()
 
     import torch
@@ -1208,6 +1478,7 @@ def main() -> int:
     phase_detect(card, eval_ms["default"])
     phase_mtfi(dev, samples, card, args.profile)
     phase_backbones(dev, card)
+    phase_train(dev, samples, card, args.profile)
 
     rows = []
     for name, key, src, replaces in KERNEL_ROWS:

@@ -1,6 +1,7 @@
 """Command-line interface of the port.
 
   python -m cmdiad_tpu_torch.cli detect [--<Config field> value ...] [--device cuda|cpu]
+  python -m cmdiad_tpu_torch.cli train [--<TrainConfig field> value ...] [--device cuda|cpu]
   python -m cmdiad_tpu_torch.cli convert-ckpt --src net.pth --dst net.npz --kind KIND
 
 ``detect`` fits and evaluates every class of the dataset at
@@ -13,6 +14,12 @@ The MTFI methods take their fusion net from ``--fusion_module_path`` (a
 reference ``.pth`` or the JAX package's ``.npz``), the backbones their
 weights from ``--rgb_ckpt_path`` and ``--xyz_ckpt_path``.
 
+``train`` runs MTFI distillation training (``train.distill``) on the
+dumps under ``--data_path`` and prints the JAX CLI's JSON line: the last
+epoch's ``final_train_loss`` and ``final_test_loss``, or ``{"status":
+"already complete", ...}`` when the resumed run has no epoch left.  Every
+``TrainConfig`` field is a flag; ``--device`` defaults to ``cuda``.
+
 ``convert-ckpt`` writes a reference torch checkpoint in the JAX package's
 npz layout, the same file as the JAX CLI's ``convert-ckpt``.
 
@@ -24,12 +31,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 from typing import Dict, List, Sequence
 
 import numpy as np
 
-from cmdiad_tpu_torch.config import Config
+from cmdiad_tpu_torch.config import Config, TrainConfig
 from cmdiad_tpu_torch.models import convert
 
 
@@ -55,8 +63,8 @@ def _field_type(f):
     return None
 
 
-def _add_config_args(parser: argparse.ArgumentParser) -> None:
-    for f in dataclasses.fields(Config):
+def _add_config_args(parser: argparse.ArgumentParser, dc_type=Config) -> None:
+    for f in dataclasses.fields(dc_type):
         name, default, typ = "--" + f.name, f.default, _field_type(f)
         if typ is bool:
             parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
@@ -68,8 +76,8 @@ def _add_config_args(parser: argparse.ArgumentParser) -> None:
             parser.add_argument(name, type=typ, default=default)
 
 
-def _config_from_args(args) -> Config:
-    return Config(**{f.name: getattr(args, f.name) for f in dataclasses.fields(Config)})
+def _config_from_args(args, dc_type=Config):
+    return dc_type(**{f.name: getattr(args, f.name) for f in dataclasses.fields(dc_type)})
 
 
 def _afterpoint(cell: str) -> int:
@@ -183,6 +191,22 @@ def cmd_detect(args):
     return results, timings
 
 
+def cmd_train(args) -> dict:
+    """Train, print and return the JAX CLI's JSON record."""
+    from cmdiad_tpu_torch.train.distill import DistillTrainer
+    cfg = _config_from_args(args, TrainConfig)
+    trainer = DistillTrainer(cfg, device=args.device)
+    history = trainer.train().history
+    if not history["train_loss"]:
+        record = {"status": "already complete", "start_epoch": trainer.start_epoch,
+                  "epochs": cfg.epochs}
+    else:
+        record = {"final_train_loss": history["train_loss"][-1],
+                  "final_test_loss": history["test_loss"][-1]}
+    print(json.dumps(record))
+    return record
+
+
 # convert-ckpt --kind -> the JAX-layout writer of a reference state dict
 _CONVERTERS = {
     "vit": convert.vit_from_timm,
@@ -212,6 +236,11 @@ def main(argv=None):
     p.add_argument("--trace_dir", default="",
                    help="write a torch.profiler trace of the run to DIR/trace.json")
     p.set_defaults(fn=cmd_detect)
+    p = sub.add_parser("train", help="MTFI distillation training")
+    _add_config_args(p, TrainConfig)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+    p.set_defaults(fn=cmd_train)
     p = sub.add_parser("convert-ckpt", help="torch .pth -> the JAX package's .npz params")
     p.add_argument("--src", required=True)
     p.add_argument("--dst", required=True)

@@ -1,4 +1,4 @@
-"""Typed configuration for detection runs (PyTorch port).
+"""Typed configuration for detection and training runs (PyTorch port).
 
 A copy of ``cmdiad_tpu.config.Config``: the same fields, defaults and
 ``validate``, so a config fingerprint written by either package reads the
@@ -9,6 +9,8 @@ cannot honour yet (``mesh_shape``, ``shard_bank``, ``ocsvm_backend='jax'``
 raise ``NotImplementedError`` through ``methods.base.refuse_unported`` when
 a method is built) and ignores the ones that shape only the JAX package's
 speed (``use_pallas``, ``fused_eval``, ``cache_train_features``).
+``TrainConfig`` and ``TRAIN_METHODS`` are the JAX package's MTFI training
+configuration, copied the same way.
 """
 
 from __future__ import annotations
@@ -174,3 +176,61 @@ def method_preset(name: str, **overrides) -> Config:
     if name not in _PRESETS:
         raise KeyError(f"unknown preset {name!r}; choose from {sorted(_PRESETS)}")
     return Config(**{**_PRESETS[name], **overrides}).validate()
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """MTFI distillation training configuration (the JAX package's
+    ``TrainConfig``: the same fields, defaults and ``replace``).
+
+    ``lr`` unset means ``blr * batch_size * accum_iter / 256``.
+    ``weight_decay > 0`` adds ``weight_decay * param`` to the gradient
+    before Adam (L2, not AdamW; the reference parses the flag and never
+    passes it on, so 0 is its behaviour).  ``min_lr`` and ``c_hrnet`` are
+    accepted and read by neither package's trainer (the schedule is
+    warmup-then-constant; HRNet's head always takes 512 channels).
+    ``mesh_shape`` other than ``()`` raises ``NotImplementedError`` in the
+    port (multi-device training is not ported yet); ``data_axis`` and
+    ``model_axis`` mean something only with it.
+    """
+
+    train_method: str = "HallucinationCrossModality"
+    data_path: str = ""
+    output_dir: str = "./output_dir"
+    batch_size: int = 64
+    epochs: int = 100
+    accum_iter: int = 1
+    weight_decay: float = 0.0
+    lr: Optional[float] = None
+    blr: float = 0.002
+    min_lr: float = 0.0
+    warmup_epochs: int = 10
+    seed: int = 3407
+    resume: str = ""
+    start_epoch: int = 0
+    dist_method: str = "l2"
+    sigmoid_loss: bool = False
+    mlp_depth: int = 1
+    c_hrnet: int = 512
+    rgb_backbone: str = "dino"
+    estimate_depth: bool = False
+    save_every: int = 5
+    mesh_shape: Tuple[int, ...] = ()
+    data_axis: str = "data"
+    model_axis: str = "model"
+    compute_dtype: str = "float32"
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+TRAIN_METHODS = (
+    "HallucinationCrossModality",
+    "HallucinationCrossModalityConv",
+    "RGBFeatureToXYZInputMLP",
+    "XYZFeatureToRGBInputMLP",
+    "RGBFeatureToXYZInputConv",
+    "XYZFeatureToRGBInputConv",
+    "RGBInputToXYZFeatureHRNET",
+    "XYZInputToRGBFeatureHRNET",
+)

@@ -10,7 +10,7 @@ OIHW, kernel-1 Conv1d weights (out, in, 1), LayerNorm/BatchNorm
 ``scale``/``bias`` -> ``weight``/``bias``, and BatchNorm ``batch_stats``
 mean/var -> running statistics.  The names are timm's, Point-MAE's and the
 reference fusion nets', the inverse of the JAX package's checkpoint
-converters.
+converters; the fusion nets' come from their tables in ``models.names``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from cmdiad_tpu_torch.models import names
 
 
 def _t(a) -> torch.Tensor:
@@ -110,63 +112,27 @@ def point_mae_state_dict(variables) -> Dict[str, torch.Tensor]:
 
 def ftof_mlp_state_dict(variables) -> Dict[str, torch.Tensor]:
     """Flax ``FtoFMlp`` variables -> ``models.hallucination.FtoFMlp``."""
-    p, sd = variables["params"], {}
-    for side in ("xyz", "rgb"):
-        _norm(sd, f"{side}_norm", p[f"{side}_norm"])
-        for d in range(len(p[f"{side}_mlp"])):
-            for fc in ("fc1", "fc2", "fc3"):
-                _linear(sd, f"{side}_mlp.mlp_module.{d}.{fc}",
-                        p[f"{side}_mlp"][f"block_{d}"][fc])
-    return sd
+    return names.to_torch(names.ftof_mlp(len(variables["params"]["xyz_mlp"])), variables)
 
 
 def ftof_conv_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """Flax ``FtoFConv`` variables -> ``models.hallucination.FtoFConv``
-    (``{side}_conv.{0,3,6,9}`` convs, ``.{1,4,7}`` BatchNorms)."""
-    p, stats, sd = variables["params"], variables["batch_stats"], {}
-    for side in ("xyz", "rgb"):
-        sp, ss = p[f"{side}_conv"], stats[f"{side}_conv"]
-        for j in range(4):
-            _conv2d(sd, f"{side}_conv.{3 * j}", sp[f"conv_{j}"])
-        for j in range(3):
-            _batchnorm(sd, f"{side}_conv.{3 * j + 1}", sp[f"bn_{j}"], ss[f"bn_{j}"])
-    return sd
+    """Flax ``FtoFConv`` variables -> ``models.hallucination.FtoFConv``."""
+    return names.to_torch(names.ftof_conv(), variables)
 
 
 def ftoi_mlp_state_dict(variables) -> Dict[str, torch.Tensor]:
     """Flax ``FtoIMlp`` variables -> ``models.hallucination.FtoIMlp``."""
-    p, sd = variables["params"], {}
-    _norm(sd, "rgb_norm", p["norm"])
-    for j in range(4):
-        _linear(sd, f"mlp.{2 * j}", p[f"mlp_{j}"])
-    return sd
+    return names.to_torch(names.ftoi_mlp(), variables)
 
 
 def ftoi_conv_state_dict(variables) -> Dict[str, torch.Tensor]:
     """Flax ``FtoIConv`` variables -> ``models.hallucination.FtoIConv``."""
-    sd = {}
-    for j in (1, 2, 3, 4):
-        _conv2d(sd, f"conv{j}", variables["params"][f"conv{j}"])
-    return sd
+    return names.to_torch(names.ftoi_conv(), variables)
 
 
 def hrnet_state_dict(variables) -> Dict[str, torch.Tensor]:
     """Flax ``HRNet`` variables -> ``models.hrnet.HRNet``."""
-    p, stats, sd = variables["params"], variables["batch_stats"], {}
-    for i in (1, 2):
-        _conv2d(sd, f"conv{i}", p[f"conv{i}"])
-        _batchnorm(sd, f"bn{i}", p[f"bn{i}"], stats[f"bn{i}"])
-    for layer in (1, 2, 3):
-        for i in range(4):
-            bp, bs, t = p[f"layer{layer}_{i}"], stats[f"layer{layer}_{i}"], f"layer{layer}.{i}"
-            for j in (1, 2, 3):
-                _conv2d(sd, f"{t}.conv{j}", bp[f"conv{j}"])
-                _batchnorm(sd, f"{t}.bn{j}", bp[f"bn{j}"], bs[f"bn{j}"])
-            if "down_conv" in bp:
-                _conv2d(sd, f"{t}.downsample.0", bp["down_conv"])
-                _batchnorm(sd, f"{t}.downsample.1", bp["down_bn"], bs["down_bn"])
-    _conv2d(sd, "final_layer", p["final_layer"])
-    return sd
+    return names.to_torch(names.hrnet(), variables)
 
 
 def load_jax_params(backbone, params) -> None:

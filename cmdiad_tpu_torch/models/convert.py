@@ -15,7 +15,8 @@ the JAX package's converters, kept here so that the port's
 ``convert-ckpt`` writes the same npz as the JAX CLI: pure renaming and
 transposition, torch Linear (out, in) -> flax kernel (in, out), Conv2d
 (out, in, kh, kw) -> (kh, kw, in, out), kernel-1 Conv1d -> Dense, BatchNorm
-running statistics -> ``batch_stats``.
+running statistics -> ``batch_stats``.  The fusion nets' come from their
+name tables in ``models.names``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from cmdiad_tpu_torch.models import names
 
 Array = np.ndarray
 StateDict = Mapping[str, Array]
@@ -228,73 +231,21 @@ def point_mae_from_torch(sd: StateDict, depth: int = 12) -> dict:
 # ---------------------------------------------------------------------------
 
 def ftof_mlp_from_torch(sd: StateDict, mlp_depth: int = 1) -> dict:
-    params = {}
-    for side in ("xyz", "rgb"):
-        params[f"{side}_norm"] = _ln(sd, f"{side}_norm")
-        blocks = {}
-        for d in range(mlp_depth):
-            t = f"{side}_mlp.mlp_module.{d}"
-            blocks[f"block_{d}"] = {
-                "fc1": _dense(sd, f"{t}.fc1"),
-                "fc2": _dense(sd, f"{t}.fc2"),
-                "fc3": _dense(sd, f"{t}.fc3"),
-            }
-        params[f"{side}_mlp"] = blocks
-    return {"params": params}
+    return names.to_flax(names.ftof_mlp(mlp_depth), sd)
 
 
 def ftof_conv_from_torch(sd: StateDict) -> dict:
-    params, stats = {}, {}
-    for side in ("xyz", "rgb"):
-        p, s = {}, {}
-        for j, seq in enumerate((0, 3, 6, 9)):
-            p[f"conv_{j}"] = _conv2d(sd, f"{side}_conv.{seq}", bias=False)
-        for j, seq in enumerate((1, 4, 7)):
-            p[f"bn_{j}"] = _bn_params(sd, f"{side}_conv.{seq}")
-            s[f"bn_{j}"] = _bn_stats(sd, f"{side}_conv.{seq}")
-        params[f"{side}_conv"] = p
-        stats[f"{side}_conv"] = s
-    return {"params": params, "batch_stats": stats}
+    return names.to_flax(names.ftof_conv(), sd)
 
 
 def ftoi_mlp_from_torch(sd: StateDict) -> dict:
-    params = {"norm": _ln(sd, "rgb_norm")}
-    for j, seq in enumerate((0, 2, 4, 6)):
-        params[f"mlp_{j}"] = _dense(sd, f"mlp.{seq}")
-    return {"params": params}
+    return names.to_flax(names.ftoi_mlp(), sd)
 
 
 def ftoi_conv_from_torch(sd: StateDict) -> dict:
     # reference declares self.norm but never uses it (:191,200-210) — dropped.
-    return {"params": {f"conv{j}": _conv2d(sd, f"conv{j}")
-                       for j in (1, 2, 3, 4)}}
+    return names.to_flax(names.ftoi_conv(), sd)
 
 
 def hrnet_from_torch(sd: StateDict) -> dict:
-    params = {
-        "conv1": _conv2d(sd, "conv1", bias=False),
-        "bn1": _bn_params(sd, "bn1"),
-        "conv2": _conv2d(sd, "conv2", bias=False),
-        "bn2": _bn_params(sd, "bn2"),
-        "final_layer": _conv2d(sd, "final_layer"),
-    }
-    stats = {"bn1": _bn_stats(sd, "bn1"), "bn2": _bn_stats(sd, "bn2")}
-    for layer in range(1, 4):
-        for i in range(4):
-            t = f"layer{layer}.{i}"
-            p = {
-                "conv1": _conv2d(sd, f"{t}.conv1", bias=False),
-                "bn1": _bn_params(sd, f"{t}.bn1"),
-                "conv2": _conv2d(sd, f"{t}.conv2", bias=False),
-                "bn2": _bn_params(sd, f"{t}.bn2"),
-                "conv3": _conv2d(sd, f"{t}.conv3", bias=False),
-                "bn3": _bn_params(sd, f"{t}.bn3"),
-            }
-            s = {k: _bn_stats(sd, f"{t}.{k}") for k in ("bn1", "bn2", "bn3")}
-            if layer == 1 and i == 0:
-                p["down_conv"] = _conv2d(sd, f"{t}.downsample.0", bias=False)
-                p["down_bn"] = _bn_params(sd, f"{t}.downsample.1")
-                s["down_bn"] = _bn_stats(sd, f"{t}.downsample.1")
-            params[f"layer{layer}_{i}"] = p
-            stats[f"layer{layer}_{i}"] = s
-    return {"params": params, "batch_stats": stats}
+    return names.to_flax(names.hrnet(), sd)

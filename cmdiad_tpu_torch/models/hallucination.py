@@ -1,4 +1,4 @@
-"""MTFI hallucination nets in PyTorch, inference forwards.
+"""MTFI hallucination nets in PyTorch, with their training losses.
 
 The JAX package's ``models/hallucination.py`` (the reference's
 ``models/hallucination_network.py``), channels-last at the boundary:
@@ -7,11 +7,19 @@ The JAX package's ``models/hallucination.py`` (the reference's
             patch features rgb <-> xyz (``generate``).
   FtoFConv  two conv3x3 + BN + ReLU (x3) + conv3x3 stacks on the 56² feature
             grid, 768 wide inside and out whatever the input width.
-  FtoIMlp   LayerNorm + MLP in_dim -> 1152 -> 384 -> 96 -> 3 on the 56² grid,
-            bicubic-upsampled to ``out_size``: an organized point cloud or an
-            image from features.
+  FtoIMlp   LayerNorm + MLP in_dim -> 1152 -> 384 -> 96 -> out_channels on
+            the 56² grid, bicubic-upsampled to ``out_size``: an organized
+            point cloud or an image (3 channels) or a depth map (1) from
+            features.
   FtoIConv  conv in_dim -> 384, bicubic 56 -> ``out_size``, then convs
-            384 -> 96 -> 32 -> 3 with ReLUs.
+            384 -> 96 -> 32 -> out_channels with ReLUs.
+
+The training losses are the JAX package's (the reference's): FtoFMlp's
+``forward`` gives both directions' ``cos_dist``, ``l2`` or ``smooth_l1``
+losses, FtoFConv's ``forward`` their l2 losses (optionally on sigmoids)
+with BatchNorm in training mode, the FtoI nets' ``loss`` the per-pixel L2
+distance to the target image; every loss sums over all but the batch axis
+and divides by the batch size, in at least float32.
 
 Module names are the reference's torch keys (``xyz_norm``,
 ``xyz_mlp.mlp_module.{d}.fc{1,2,3}``, ``xyz_conv.{0..9}``, ``rgb_norm`` and
@@ -20,7 +28,8 @@ Module names are the reference's torch keys (``xyz_norm``,
 after every linear, the output one included; the hidden width is
 ``int(dim * 2.5)``.  LayerNorm epsilon is 1e-6 (the JAX package's ``nn.
 LayerNorm`` names none, so flax's default).  BatchNorm runs on its running
-statistics.  Parameters stay float32; ``dtype`` is the compute type.
+statistics, or with ``train=True`` as flax's does in training (see
+``batch_norm``).  Parameters stay float32; ``dtype`` is the compute type.
 """
 
 from __future__ import annotations
@@ -34,9 +43,9 @@ from cmdiad_tpu_torch.ops.pooling import bicubic_resize
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9    # flax's: running = 0.9 * running + 0.1 * batch
 GRID = 56
 HIDDEN_RATIO = 2.5   # FtoF MLP hidden width int(dim * 2.5)
-OUT_CHANNELS = 3     # FtoI nets regress xyz or RGB
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -46,11 +55,60 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     padding=conv.padding)
 
 
-def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm on its running statistics, in the input's dtype."""
-    return F.batch_norm(x, bn.running_mean.to(x.dtype), bn.running_var.to(x.dtype),
-                        bn.weight.to(x.dtype), bn.bias.to(x.dtype), False, 0.0,
-                        bn.eps)
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """BatchNorm of an NCHW tensor, returned in the input's dtype.
+
+    Eval mode normalises with the running statistics.  ``train=True``
+    follows flax's ``BatchNorm`` rather than torch's: the batch mean and the
+    *biased* variance E[x²]−E[x]², both in at least float32 and the
+    variance clipped at 0, normalise the batch, and the running statistics
+    move to ``0.9 * running + 0.1 * batch`` with that same variance (torch
+    would fold in the unbiased one).
+    """
+    if not train:
+        return F.batch_norm(x, bn.running_mean.to(x.dtype), bn.running_var.to(x.dtype),
+                            bn.weight.to(x.dtype), bn.bias.to(x.dtype), False, 0.0,
+                            bn.eps)
+    xf = _at_least_f32(x)
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():
+        for running, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+            running.copy_(BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """torch ``nn.SmoothL1Loss(reduction='none')``, beta 1."""
+    d = (pred - target).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+
+def pairwise_loss(hallu: torch.Tensor, real: torch.Tensor, dist_method: str,
+                  dim: int = 2) -> torch.Tensor:
+    """The reference's distillation loss, in (at least) float32: the per-token
+    ``cos_dist`` (1 - cosine, its denominator clamped at 1e-30), ``l2``
+    distance or element-wise ``smooth_l1``, summed over all but the batch
+    axis and divided by the batch size."""
+    hallu, real = _at_least_f32(hallu), _at_least_f32(real)
+    if dist_method == "cos_dist":
+        num = (hallu * real).sum(dim)
+        den = torch.clamp_min(torch.linalg.vector_norm(hallu, dim=dim)
+                              * torch.linalg.vector_norm(real, dim=dim), 1e-30)
+        per = 1.0 - num / den
+    elif dist_method == "l2":
+        per = torch.linalg.vector_norm(hallu - real, dim=dim)
+    elif dist_method == "smooth_l1":
+        per = smooth_l1(hallu, real)
+    else:
+        raise ValueError(dist_method)
+    return per.sum() / per.shape[0]
 
 
 def _grid(tokens: torch.Tensor) -> torch.Tensor:
@@ -114,6 +172,14 @@ class FtoFMlp(nn.Module):
             raise ValueError(out_type)
         return mlp(layer_norm(norm, feature.to(torch.float32)).to(self.dtype))
 
+    def forward(self, xyz: torch.Tensor, rgb: torch.Tensor,
+                dist_method: str = "cos_dist"):
+        """Both directions' distillation losses -> (loss_xyz, loss_rgb):
+        xyz features hallucinated from rgb against the real ones, and the
+        other way round."""
+        return (pairwise_loss(self.generate(rgb, "xyz"), xyz, dist_method),
+                pairwise_loss(self.generate(xyz, "rgb"), rgb, dist_method))
+
 
 def _conv_stack(in_dim: int) -> nn.Sequential:
     """conv3x3 (no bias) + BN + ReLU, three times, then conv3x3: 768 wide."""
@@ -125,12 +191,13 @@ def _conv_stack(in_dim: int) -> nn.Sequential:
     return nn.Sequential(*layers)
 
 
-def _run_conv_stack(stack: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+def _run_conv_stack(stack: nn.Sequential, x: torch.Tensor,
+                    train: bool = False) -> torch.Tensor:
     for layer in stack:
         if isinstance(layer, nn.Conv2d):
             x = conv2d(layer, x)
         elif isinstance(layer, nn.BatchNorm2d):
-            x = batch_norm(layer, x)
+            x = batch_norm(layer, x, train)
         else:
             x = F.relu(x)
     return x
@@ -146,19 +213,31 @@ class FtoFConv(nn.Module):
         self.xyz_conv = _conv_stack(xyz_dim)
         self.rgb_conv = _conv_stack(rgb_dim)
 
-    def generate(self, feature: torch.Tensor, out_type: str) -> torch.Tensor:
+    def generate(self, feature: torch.Tensor, out_type: str,
+                 train: bool = False) -> torch.Tensor:
         """(B, 3136, C) -> (B, 3136, 768); 'xyz' runs the rgb stack on rgb
         features, 'rgb' the xyz stack on xyz features."""
         if out_type not in ("xyz", "rgb"):
             raise ValueError(out_type)
         stack = self.rgb_conv if out_type == "xyz" else self.xyz_conv
-        return _tokens(_run_conv_stack(stack, _grid(feature.to(self.dtype))))
+        return _tokens(_run_conv_stack(stack, _grid(feature.to(self.dtype)), train))
+
+    def forward(self, xyz: torch.Tensor, rgb: torch.Tensor, sigmoid: bool = False,
+                train: bool = True):
+        """Both directions' l2 losses -> (loss_xyz, loss_rgb), on the
+        sigmoids of hallucinated and real features with ``sigmoid``;
+        ``train`` runs BatchNorm in training mode."""
+        xyz_h, rgb_h = self.generate(rgb, "xyz", train), self.generate(xyz, "rgb", train)
+        if sigmoid:
+            xyz_h, xyz, rgb_h, rgb = (torch.sigmoid(_at_least_f32(t))
+                                      for t in (xyz_h, xyz, rgb_h, rgb))
+        return pairwise_loss(xyz_h, xyz, "l2"), pairwise_loss(rgb_h, rgb, "l2")
 
 
 class FtoIMlp(nn.Module):
     """Feature -> raw input MLP (``HallucinationRGBFeatureToXYZInputMLP``)."""
 
-    def __init__(self, in_dim: int = 768, out_size: int = 224,
+    def __init__(self, in_dim: int = 768, out_channels: int = 3, out_size: int = 224,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -166,16 +245,19 @@ class FtoIMlp(nn.Module):
         self.rgb_norm = nn.LayerNorm(in_dim, eps=LN_EPS)
         self.mlp = nn.Sequential(
             nn.Linear(in_dim, 1152), nn.GELU(), nn.Linear(1152, 384), nn.GELU(),
-            nn.Linear(384, 96), nn.GELU(), nn.Linear(96, OUT_CHANNELS))
+            nn.Linear(384, 96), nn.GELU(), nn.Linear(96, out_channels))
 
     def forward(self, feature: torch.Tensor) -> torch.Tensor:
-        """(B, 3136, in_dim) -> (B, out_size, out_size, 3)."""
+        """(B, 3136, in_dim) -> (B, out_size, out_size, out_channels)."""
         x = layer_norm(self.rgb_norm, feature.to(torch.float32)).to(self.dtype)
         for i in (0, 2, 4):
             x = F.gelu(linear(self.mlp[i], x))
         x = linear(self.mlp[6], x)
         b, _, c = x.shape
         return bicubic_resize(x.reshape(b, GRID, GRID, c), self.out_size)
+
+    def loss(self, feature: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return input_loss(self(feature), target)
 
 
 class FtoIConv(nn.Module):
@@ -186,7 +268,7 @@ class FtoIConv(nn.Module):
     #: reference state-dict keys of modules the forward never runs
     unused_reference_keys = ("norm.",)
 
-    def __init__(self, in_dim: int = 768, out_size: int = 224,
+    def __init__(self, in_dim: int = 768, out_channels: int = 3, out_size: int = 224,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -194,12 +276,23 @@ class FtoIConv(nn.Module):
         self.conv1 = nn.Conv2d(in_dim, 384, 3, padding=1)
         self.conv2 = nn.Conv2d(384, 96, 3, padding=1)
         self.conv3 = nn.Conv2d(96, 32, 3, padding=1)
-        self.conv4 = nn.Conv2d(32, OUT_CHANNELS, 3, padding=1)
+        self.conv4 = nn.Conv2d(32, out_channels, 3, padding=1)
 
     def forward(self, feature: torch.Tensor) -> torch.Tensor:
-        """(B, 3136, in_dim) -> (B, out_size, out_size, 3)."""
+        """(B, 3136, in_dim) -> (B, out_size, out_size, out_channels)."""
         x = conv2d(self.conv1, _grid(feature.to(self.dtype)))
         x = bicubic_resize(x.permute(0, 2, 3, 1), self.out_size).permute(0, 3, 1, 2)
         x = F.relu(conv2d(self.conv2, x))
         x = F.relu(conv2d(self.conv3, x))
         return conv2d(self.conv4, x).permute(0, 2, 3, 1)
+
+    def loss(self, feature: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return input_loss(self(feature), target)
+
+
+def input_loss(hallu: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """FtoI loss: the per-pixel L2 distance over channels, summed and
+    divided by the batch size, in (at least) float32; a 1-channel (depth)
+    output broadcasts against a 3-channel target, as in the JAX package."""
+    per = torch.linalg.vector_norm(_at_least_f32(hallu) - _at_least_f32(target), dim=-1)
+    return per.sum() / per.shape[0]

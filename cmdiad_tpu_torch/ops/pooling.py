@@ -94,9 +94,9 @@ def bicubic_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
     """F.interpolate(mode='bicubic', align_corners=False) on a channels-last
     (B, H, W, C) tensor: Keys' kernel with A = -0.75 and edge-clamped taps,
     the separable band matrices of the JAX package's ``bicubic_resize``.
-    Computed in float32, returned in the input's dtype."""
-    y = F.interpolate(x.permute(0, 3, 1, 2).to(torch.float32), size=_pair(out_hw),
-                      mode="bicubic", align_corners=False)
+    Computed in at least float32, returned in the input's dtype."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(torch.promote_types(x.dtype, torch.float32)),
+                      size=_pair(out_hw), mode="bicubic", align_corners=False)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

@@ -5,8 +5,9 @@ A nested dict of arrays (a flax variables pytree such as ``{"params": ...,
 joined with the unit separator, plus a ``__meta__`` entry holding a JSON
 byte array.  Files written here load in the JAX package's
 ``train/checkpoint.load_pytree`` and the other way round, so a fusion net
-the JAX package trained (``fusion_module_path=*.npz``) serves in the port.
-Training state waits for the training slice.
+the JAX package trained (``fusion_module_path=*.npz``) serves in the port,
+and the trainers' checkpoints (``params``, ``batch_stats``, ``opt_state``)
+resume in either package (``train.distill``).
 """
 
 from __future__ import annotations
@@ -30,10 +31,16 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         _flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k), out)
 
 
-def save_pytree(path: str, tree, meta: dict | None = None) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+def flatten(tree) -> Dict[str, np.ndarray]:
+    """{joined path: leaf} of a nested dict, as the file keys it."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
+    return flat
+
+
+def save_pytree(path: str, tree, meta: dict | None = None) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    flat = flatten(tree)
     flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(), dtype=np.uint8)
     np.savez(path, **flat)
 

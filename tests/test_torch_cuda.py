@@ -533,3 +533,60 @@ def test_small_mtfi_method_on_the_card(dev, preset):
     np.testing.assert_allclose(cpu.image_preds, runner.method.image_preds, rtol=1e-4)
     assert np.abs(maps_gpu - maps_cpu).max() <= 2e-2 * scale
     assert np.abs(maps_gpu - maps_cpu).mean() <= 1e-3 * scale
+
+
+# train method -> its batch's shapes at full width (768-wide features,
+# 3136 tokens, 224² images)
+_TRAIN_SHAPES = {
+    "HallucinationCrossModality": {"patch": (3136, 1536)},
+    "HallucinationCrossModalityConv": {"patch": (3136, 1536)},
+    "RGBFeatureToXYZInputMLP": {"feature": (3136, 768), "target": (224, 224, 3)},
+    "XYZFeatureToRGBInputMLP": {"feature": (3136, 768), "target": (224, 224, 3)},
+    "RGBFeatureToXYZInputConv": {"feature": (3136, 768), "target": (224, 224, 3)},
+    "XYZFeatureToRGBInputConv": {"feature": (3136, 768), "target": (224, 224, 3)},
+    "RGBInputToXYZFeatureHRNET": {"image": (224, 224, 3), "feature": (3136, 768)},
+    "XYZInputToRGBFeatureHRNET": {"image": (224, 224, 3), "feature": (3136, 768)},
+}
+
+
+def _leaf_err(got, want):
+    return max(float(np.abs(got[k] - w).max()) / max(float(np.abs(w).max()), 1e-30)
+               for k, w in want.items())
+
+
+@pytest.mark.parametrize("tm", list(_TRAIN_SHAPES))
+def test_training_step_on_the_card_matches_the_cpu(dev, rng, tm):
+    """One training step (batch 2, full width, seeded weights, lr > 0 from
+    the first update) on the card and on the CPU, at ``chip_smoke.py``
+    phase 7's limits: the loss to rtol 1e-4 and the BatchNorm statistics to
+    1e-4 of each leaf's largest in float32; the updated parameters to 1e-4
+    of each leaf's largest in float64 (float32 keeps about two digits of
+    some BatchNorm gradients on either device)."""
+    from cmdiad_tpu_torch.config import TrainConfig
+    from cmdiad_tpu_torch.models import names
+    from cmdiad_tpu_torch.train.checkpoint import flatten
+    from cmdiad_tpu_torch.train.distill import DistillTrainer
+
+    arrays = {k: rng.normal(size=(2, *s)).astype(np.float32)
+              for k, s in _TRAIN_SHAPES[tm].items()}
+    cfg = TrainConfig(train_method=tm, batch_size=2, warmup_epochs=0, output_dir="")
+    for dtype in (torch.float32, torch.float64):
+        out = {}
+        for d in (dev, "cpu"):
+            t = DistillTrainer(cfg, arrays=arrays, test_arrays=arrays, device=d)
+            if dtype == torch.float64:
+                t.net.double()
+                t.net.dtype = torch.float64
+                for state in (t.opt.mu, t.opt.nu):
+                    for k in state:
+                        state[k] = state[k].double()
+            loss, _ = t.step({k: torch.from_numpy(v).to(d, dtype) for k, v in arrays.items()})
+            out[d] = (float(loss), flatten(names.to_flax(t.table, t.net.state_dict())))
+        (card_loss, card), (cpu_loss, cpu) = out[dev], out["cpu"]
+        assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss), (dtype, card_loss, cpu_loss)
+        stats = {k: v for k, v in cpu.items() if k.startswith("batch_stats")}
+        if dtype == torch.float32 and stats:
+            assert _leaf_err(card, stats) <= 1e-4
+        if dtype == torch.float64:
+            assert _leaf_err(card, {k: v for k, v in cpu.items()
+                                    if k.startswith("params")}) <= 1e-4

@@ -122,6 +122,24 @@ def test_ftoi_nets(rng, flavour):
     _close(got.detach().numpy(), want)
 
 
+@pytest.mark.parametrize("flavour", ["mlp", "conv"])
+def test_ftoi_nets_one_channel(rng, flavour):
+    """``out_channels=1`` (the trainer's ``estimate_depth``), JAX variables
+    carried across: the bridge takes the width from the arrays."""
+    in_dim, out_size = 24, 64
+    jax_cls, port_cls, to_sd = ((jh.FtoIMlp, th.FtoIMlp, bridge.ftoi_mlp_state_dict)
+                                if flavour == "mlp" else
+                                (jh.FtoIConv, th.FtoIConv, bridge.ftoi_conv_state_dict))
+    net = jax_cls(in_dim, out_channels=1, out_size=out_size)
+    feat = rng.normal(size=(2, 3136, in_dim)).astype(np.float32)
+    variables = _randomize(net.init(jax.random.PRNGKey(0), jnp.asarray(feat)))
+    port = _port(port_cls(in_dim, out_channels=1, out_size=out_size), to_sd(variables))
+    want = net.apply(variables, jnp.asarray(feat))
+    got = port(torch.from_numpy(feat))
+    assert got.shape == want.shape == (2, out_size, out_size, 1)
+    _close(got.detach().numpy(), want)
+
+
 def test_hrnet(rng):
     out_dim = 16
     net = JaxHRNet(out_dim)

@@ -3,8 +3,8 @@
 * it imports neither JAX nor anything of the JAX package, nor Pillow or
   pandas (the card machine has neither), checked twice: statically over
   every module, and in a fresh interpreter;
-* its entry points default to the card and refuse to run without one
-  instead of moving to the CPU;
+* its entry points (the trainer and ``cli train`` among them) default to
+  the card and refuse to run without one instead of moving to the CPU;
 * its ``Config`` is the JAX package's field for field, so the fitted-state
   fingerprints agree.
 """
@@ -61,7 +61,7 @@ def test_importing_the_port_loads_no_jax():
         "import cmdiad_tpu_torch\n"
         "for m in pkgutil.walk_packages(cmdiad_tpu_torch.__path__, 'cmdiad_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import cmdiad_tpu_torch.runner\n"
+        "import cmdiad_tpu_torch.runner, cmdiad_tpu_torch.train.distill\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cmdiad_tpu', 'PIL', 'pandas')\n"
         "       or m.startswith(('jax.', 'flax.', 'cmdiad_tpu.', 'PIL.', 'pandas.'))]\n"
         "print(len([m for m in sys.modules if m.startswith('cmdiad_tpu_torch')]))\n"
@@ -73,7 +73,32 @@ def test_importing_the_port_loads_no_jax():
     assert int(out.stdout.strip().splitlines()[-1]) > 10
 
 
-@pytest.mark.parametrize("build", ["backbone", "runner", "device"])
+def test_cli_train_runs_without_jax(tmp_path):
+    """``cli train`` in a fresh interpreter, on FtoF dumps at the CLI's
+    768-wide features, loads no JAX module."""
+    from cmdiad_tpu_torch.data.feature_store import FeatureStore
+    rng = np.random.default_rng(0)
+    store = FeatureStore(str(tmp_path / "dumps"))
+    for split, n in (("train", 4), ("test", 2)):
+        for i in range(n):
+            store.save(split, f"s{i}", patch=rng.normal(size=(16, 1536)).astype(np.float32))
+    code = (
+        "import sys\n"
+        "from cmdiad_tpu_torch import cli\n"
+        f"cli.main(['train', '--data_path', {str(tmp_path / 'dumps')!r}, '--epochs', '1',\n"
+        f"          '--batch_size', '2', '--output_dir', {str(tmp_path / 'out')!r},\n"
+        "          '--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'cmdiad_tpu')\n"
+        "       or m.startswith(('jax.', 'flax.', 'optax.', 'cmdiad_tpu.'))]\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "final_train_loss" in out.stdout
+
+
+@pytest.mark.parametrize("build", ["backbone", "runner", "device", "trainer", "cli_train"])
 def test_cuda_default_raises_without_a_card(build, monkeypatch):
     """No silent fallback: the default device is the card, and without one
     the entry points raise instead of running on the CPU."""
@@ -89,6 +114,13 @@ def test_cuda_default_raises_without_a_card(build, monkeypatch):
                                               num_heads=1))
         elif build == "runner":
             CMDIADRunner(Config(rgb_size=16))
+        elif build == "trainer":
+            from cmdiad_tpu_torch.config import TrainConfig
+            from cmdiad_tpu_torch.train.distill import DistillTrainer
+            DistillTrainer(TrainConfig(), arrays={}, test_arrays={})
+        elif build == "cli_train":
+            from cmdiad_tpu_torch import cli
+            cli.main(["train", "--data_path", "unused"])
         else:
             resolve_device()
 
