@@ -63,7 +63,21 @@ Phases:
      bfloat16 beside its FLOP bound and peak memory; the trained FtoF and
      HRNet checkpoints serve ``mtfi_ftof_xyz_main`` and
      ``mtfi_itof_rgb_main`` through ``fusion_module_path``, each
-     evaluating from its main modality with its launch check.
+     evaluating from its main modality with its launch check;
+  8. multi-device (``cmdiad_tpu_torch.parallel``), ranks started by
+     ``parallel.launch.spawn``: (a) NCCL at world 1 on the card: the dry
+     run, and ``DINO+Point_MAE`` fitted with ``mesh_shape=(1,)`` and with
+     ``shard_bank=True``, predictions identical to phase 3's; (b) gloo at
+     world 2 with both ranks on the card (NCCL refuses two ranks on one
+     card): phase 3's fitted states served data-parallel (4 test samples a
+     rank; default and throughput) and with sharded banks (4096 of the
+     8192 padded rows a rank; default and throughput), each launch's batch
+     or bank rows checked, every bank row chosen otherwise than phase 3's
+     replicated bank held to the quantised product's envelope and the
+     predictions on the mesh's rows to phase 3's; a data-parallel fit's
+     metrics; one float64 training step of FtoFMlp and of HRNet at 2 x 32
+     against one at 64; the dry run.  Two ranks on one card measure the
+     collectives and the extra process, not scaling.
 
 Prints the card, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -572,6 +586,13 @@ def phase_kernels(dev):
         for n, heads in ((1024, 6), (1370, 12), (1025, 6)) + (
                 ((785, 12),) if dtype == "float32" else ()):
             check_flash(rng, dev, dtype, n, heads)
+    # phase 8's shapes a rank: a 4096-row shard of the 8192-padded banks
+    # (shard_bank at world 2), 4 of the 8 samples (data-parallel at world 2)
+    check_bank_min(rng, dev, 8 * 3136, 4096)
+    check_bank_min_int8(rng, dev, 8 * 3136, 4096)
+    check_fps(rng, dev, batch=4)
+    check_interp(rng, dev, batch=4)
+    check_flash(rng, dev, "bfloat16", 785, 12, batch=4)
     res["int8_dot"], probe_launches = phase_probe(rng, dev)
     return res, probe_launches
 
@@ -587,10 +608,12 @@ def phase_kernels(dev):
 THROUGHPUT_ENVELOPE = {"pixel_rocauc": 0.01 + 0.02, "au_pro": 0.01 + 0.05}
 
 
-def phase_path(dev, name: str, samples, profile=None):
+def phase_path(dev, name: str, samples, state_path: str, profile=None):
     """fit + evaluate one path with the launch counts set to 0 before and
     read after, profiling one more evaluation pass into the directory
-    ``profile`` if given; returns (launches, metrics)."""
+    ``profile`` if given; the fitted state is written to ``state_path``.
+    Returns (launches, metrics, eval ms a test image, (image scores, maps)
+    of the first evaluation)."""
     import torch
     from cmdiad_tpu_torch import kernels
     from cmdiad_tpu_torch.config import Config
@@ -622,6 +645,8 @@ def phase_path(dev, name: str, samples, profile=None):
         assert np.isfinite(v) and 0.0 <= v <= 1.0, (k, v)
     preds = np.stack(method.predictions)
     assert preds.shape == (8, 224, 224) and np.all(np.isfinite(preds))
+    predictions = (np.asarray(method.image_preds), preds)
+    method.save_state(state_path)
 
     # second passes, timed with CUDA events: evaluate again, and fit a fresh
     # runner that shares the (warm) backbone
@@ -646,7 +671,7 @@ def phase_path(dev, name: str, samples, profile=None):
         _profile_eval(runner, test, name, profile)
 
     compare_with_cpu(cfg, method, test[:2])
-    return launches, metrics, eval_ms
+    return launches, metrics, eval_ms, predictions
 
 
 @contextlib.contextmanager
@@ -708,7 +733,7 @@ def _cross_term_envelope(metric, qabs, sq, ba, bb):
     return out
 
 
-def _check_flips(metric, gpu_log, cpu_log) -> int:
+def _check_flips(metric, gpu_log, cpu_log, label: str = "card vs CPU") -> int:
     """Count the patches whose bank row differs between the card and the
     CPU, and hold each such pair of rows to the envelope in which the
     quantised product cannot order them.  Both devices minimise
@@ -737,7 +762,7 @@ def _check_flips(metric, gpu_log, cpu_log) -> int:
               f"bank row; largest |d_a^2 - d_b^2| is {worst:.3f} of its "
               f"{metric} envelope")
         assert worst <= 1.0, worst
-    print(f"card vs CPU bank rows: {n_flip} of {n_all} patches differ, "
+    print(f"{label} bank rows: {n_flip} of {n_all} patches differ, "
           f"every one inside the {metric} envelope")
     return n_flip
 
@@ -1436,6 +1461,282 @@ def phase_train(dev, samples, card: str, profile=None):
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+# --------------------------------------------------------------------------
+# phase 8: multi-device
+# --------------------------------------------------------------------------
+
+# the argument of each kernel's C launcher that says what a rank gave it:
+# a bank-min kernel's bank rows, the other kernels' batch
+LAUNCH_SHAPE_ARG = {"bank_min": 4, "bank_min_int8": 6, "fps": 2, "interp": 5,
+                    "flash_attn": 4}
+# phase 3's fitted states served on the mesh, and phase 8's own fits:
+# tag -> (path, Config overrides, serve phase 3's state (else fit))
+MULTI_RUNS = {
+    1: {"dp": ("default", dict(mesh_shape=(1,)), False),
+        "shard": ("default", dict(shard_bank=True), False)},
+    2: {"dp": ("default", dict(mesh_shape=(2,)), True),
+        "dp_fit": ("default", dict(mesh_shape=(2,)), False),
+        "dp_throughput": ("throughput", dict(mesh_shape=(2,)), True),
+        "shard": ("default", dict(shard_bank=True), True),
+        "shard_throughput": ("throughput", dict(shard_bank=True), True)},
+}
+# what each world-2 run must launch, and with which shape: data-parallel
+# runs extract 4 of the 8 test samples a rank, sharded banks hold 4096 of
+# the 8192 padded rows a rank
+MULTI_SHAPES = {"dp": {"bank_min": None, "fps": {4}, "interp": {4}},
+                "dp_throughput": {"bank_min_int8": None, "fps": {4}, "interp": {4},
+                                  "flash_attn": {4}},
+                "shard": {"bank_min": {4096}, "fps": {8}, "interp": {8}},
+                "shard_throughput": {"bank_min_int8": {4096}, "flash_attn": {8}}}
+# How phase 8's predictions are held to phase 3's (fixed before the first
+# run).  A data-parallel rank extracts 4 samples where phase 3 extracted 8,
+# so its GEMMs may take other cuBLAS algorithms and its features move by
+# rounding; a sharded bank lets each shard choose its row through the
+# quantised product and the exact distances of the shards' rows decide, so
+# a near tie across shards may pick another row than the whole bank's
+# choice.  Either way a patch may take another bank row, as the card and
+# the CPU may in phase 3: phase 3's replicated state is served here again
+# with the rows each scoring call chose recorded, every row the mesh chose
+# differently is held to the quantised product's envelope
+# (``_check_flips``), and the replicated state is served once more on the
+# mesh's rows, where the predictions must agree within SAME_ROWS_TOL.  A
+# data-parallel fit's metrics: the JAX package's DP tolerance, 5e-3
+# (tests/test_parallel.py).
+DP_METRIC_TOL = 5e-3
+# one DP training step at 2 x 32 against one step at 64, float64
+# parameters, as a share of a leaf's largest value: the MLP's LayerNorm
+# computes in float32 in a float64 net (phase 7's card-vs-CPU limit, 1e-4);
+# HRNet's is tests/test_torch_parallel_train.py's 1e-8 (its BatchNorm-bias
+# gradients cancel down to border effects, so float64 keeps fewer of their
+# digits, and Adam's first step moves a parameter by up to lr times its
+# gradient's relative error)
+MULTI_TRAIN = {"HallucinationCrossModality": ({"patch": (3136, 1536)}, 1e-4),
+               "RGBInputToXYZFeatureHRNET": ({"image": (224, 224, 3),
+                                              "feature": (3136, 768)}, 1e-8)}
+
+
+def _rank_detect(device, world, samples, states):
+    """Phase 8's detection runs on this rank (``MULTI_RUNS[world]``): serve
+    phase 3's fitted state, or fit, then evaluate phase 3's test samples in
+    one batch of 8, every launch's shape recorded.  Returns, per run, the
+    metrics, predictions, launches, launch shapes, bank rows and the ms a
+    test image of a second evaluation."""
+    import torch
+    from cmdiad_tpu_torch import kernels
+    from cmdiad_tpu_torch.config import Config
+    from cmdiad_tpu_torch.methods.registry import build_backbone, build_method
+    from cmdiad_tpu_torch.runner import CMDIADRunner
+
+    from cmdiad_tpu_torch.parallel import eval as parallel_eval
+
+    shapes = {}
+    launch = kernels.launch
+    sharded_min = parallel_eval.sharded_bank_min_dist
+    rows = []
+
+    def sharded_rows(mesh, patch, bank_local, *a, **k):
+        v, idx = sharded_min(mesh, patch, bank_local, *a, **k)
+        rows.append((patch.cpu(), None, idx.cpu()))
+        return v, idx
+    parallel_eval.sharded_bank_min_dist = sharded_rows
+
+    def recording(name, *args):
+        if name in LAUNCH_SHAPE_ARG:
+            shapes.setdefault(name, set()).add(args[LAUNCH_SHAPE_ARG[name]])
+        launch(name, *args)
+    kernels.launch = recording
+    train, test = samples
+    backbones, out = {}, {}
+    for tag, (path, extra, serve) in MULTI_RUNS[world].items():
+        cfg = Config(batch_size=8, seed=SEED, **PATHS[path][0], **extra)
+        if path not in backbones:
+            backbones[path] = build_backbone(cfg, device)
+        if serve:
+            method = build_method(cfg, backbone=backbones[path])
+            method.load_state(states[path])
+        else:
+            runner = CMDIADRunner(cfg, backbone=backbones[path], device=device)
+            runner.fit("synthetic", train)
+            method = runner.method
+        kernels.reset_launches()
+        shapes.clear()
+        rows.clear()
+        with _bank_choices(rows):        # the data-parallel path's choices
+            _predict(method, test)
+        torch.cuda.synchronize(device)
+        result = dict(launches=dict(kernels.LAUNCHES), shapes=dict(shapes),
+                      rows=[(q, idx) for q, _, idx in rows],
+                      metrics=method.calculate_metrics(),
+                      preds=(np.asarray(method.image_preds), np.stack(method.predictions)),
+                      bank_rows={n: int(b.shape[0]) for n, b in method.banks.items()})
+        t0 = time.perf_counter()
+        _predict(method, test)
+        torch.cuda.synchronize(device)
+        result["ms"] = (time.perf_counter() - t0) * 1e3 / len(test)
+        out[tag] = result
+    kernels.launch = launch
+    parallel_eval.sharded_bank_min_dist = sharded_min
+    return out
+
+
+def _train_batch(shapes, dev):
+    """A float64 batch of 64 of ``shapes``, the same in every process."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return {k: torch.randn((TRAIN_BATCH, *shape), generator=gen, device=dev,
+                           dtype=torch.float64) for k, shape in shapes.items()}
+
+
+def _train_step64(dev, tm, mesh_shape):
+    """One float64 training step of ``tm`` at batch 64 (this rank's block
+    of it on a mesh); returns (loss, flat parameters)."""
+    from cmdiad_tpu_torch.config import TrainConfig
+    from cmdiad_tpu_torch.models import names
+    from cmdiad_tpu_torch.parallel.mesh import shard_batch
+    from cmdiad_tpu_torch.train.checkpoint import flatten
+    from cmdiad_tpu_torch.train.distill import DistillTrainer
+
+    shapes = MULTI_TRAIN[tm][0]
+    cfg = TrainConfig(train_method=tm, batch_size=TRAIN_BATCH, seed=SEED, output_dir="",
+                      warmup_epochs=0, mesh_shape=mesh_shape)
+    placeholder = {k: np.zeros((TRAIN_BATCH, 1), np.float32) for k in shapes}
+    trainer = DistillTrainer(cfg, 768, arrays=placeholder, test_arrays=placeholder, device=dev)
+    _to_float64(trainer)
+    batch = _train_batch(shapes, dev)
+    if trainer.mesh is not None:
+        batch = {k: shard_batch(v, trainer.mesh)[0] for k, v in batch.items()}
+    loss, _ = trainer.step(batch)
+    params = {k: v for k, v in flatten(names.to_flax(
+        trainer.table, trainer.net.state_dict())).items() if k.startswith("params")}
+    return float(loss), params
+
+
+def _rank_train(device):
+    """Each of ``MULTI_TRAIN``'s steps data-parallel on this rank; rank 0
+    returns the losses and parameters."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for tm in MULTI_TRAIN:
+        out[tm] = _train_step64(device, tm, (dist.get_world_size(),))
+        torch.cuda.empty_cache()
+    return out if dist.get_rank() == 0 else None
+
+
+def _hold_to_replicated(tag, path, ranks, states, test, dev, card):
+    """Hold the mesh run ``tag`` (every rank's rows of each scoring call,
+    in rank order for a data-parallel batch) to phase 3's fitted state of
+    ``path`` served here, replicated: each bank row chosen differently
+    inside the quantised product's envelope, the same predictions on the
+    mesh's rows within SAME_ROWS_TOL."""
+    import torch
+    from cmdiad_tpu_torch.config import Config
+    from cmdiad_tpu_torch.methods.registry import build_backbone, build_method
+
+    cfg = Config(batch_size=8, seed=SEED, **PATHS[path][0])
+    method = build_method(cfg, backbone=build_backbone(cfg, dev))
+    method.load_state(states[path])
+    whole_log = []
+    with _bank_choices(whole_log):
+        whole = _predict(method, test)
+    calls = zip(*(r[tag]["rows"] for r in ranks)) if tag.startswith("dp") else (
+        (call,) for call in ranks[0][tag]["rows"])
+    mesh_log = [(torch.cat([q for q, _ in parts]), bank, torch.cat([i for _, i in parts]))
+                for parts, (_, bank, _) in zip(calls, whole_log)]
+    assert len(mesh_log) == len(whole_log) and all(
+        m[2].shape == w[2].shape for m, w in zip(mesh_log, whole_log)), tag
+    print(f"  {tag} ({path}) against phase 3's state served replicated:")
+    n_flip = _check_flips(cfg.dist_method_s, mesh_log, whole_log, f"{tag} vs replicated")
+    forced_log = []
+    with _bank_choices(forced_log, forced=mesh_log):
+        same = _predict(method, test)
+    got = ranks[0][tag]["preds"]
+    scale = float(np.max(np.abs(whole[1])))
+    s_raw = float(np.max(np.abs(got[0] - whole[0]) / np.abs(whole[0])))
+    m_raw = float(np.max(np.abs(got[1] - whole[1]))) / scale
+    s_same = float(np.max(np.abs(got[0] - same[0]) / np.abs(same[0])))
+    m_same = float(np.max(np.abs(got[1] - same[1]))) / scale
+    s_tol, m_tol = SAME_ROWS_TOL[cfg.compute_dtype]
+    print(f"  {tag}: {n_flip} patches on other rows; image scores within {s_raw:.3e}, maps "
+          f"within {m_raw:.3e} of the map maximum; on the mesh's rows {s_same:.3e} and "
+          f"{m_same:.3e} (limits {s_tol}, {m_tol}); {card}")
+    assert s_same < s_tol and m_same < m_tol, (tag, s_same, m_same)
+
+
+def phase_multi(dev, samples, card: str, states, preds, metrics, eval_ms):
+    """(a) NCCL at world 1 on the card: the dry run, and ``DINO+Point_MAE``
+    fitted with ``mesh_shape=(1,)`` and with ``shard_bank=True``,
+    predictions identical to phase 3's.  (b) gloo at world 2, both ranks
+    on the card: phase 3's fitted states served data-parallel (default and
+    throughput) and with sharded banks, a data-parallel fit, one float64
+    training step of FtoFMlp and HRNet at 2 x 32 against one at 64, and the
+    dry run."""
+    import torch
+    from cmdiad_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cmdiad_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cuda = str(dev if dev.index is not None else torch.device("cuda", 0))
+
+    # (a) NCCL, world 1
+    dryrun_multichip(1, "nccl", [cuda])
+    (one,) = spawn(_rank_detect, 1, "nccl", [cuda], args=(1, samples, states))
+    for tag, res in one.items():
+        assert np.array_equal(res["preds"][0], preds["default"][0]), tag
+        assert np.array_equal(res["preds"][1], preds["default"][1]), tag
+        assert res["metrics"] == metrics["default"], (tag, res["metrics"])
+        for k in PATHS["default"][1]:
+            assert res["launches"][k] > 0, (tag, k, res["launches"])
+        print(f"phase 8 (a) NCCL world 1, {tag}: predictions identical to phase 3's; "
+              f"launches {res['launches']}, shapes {res['shapes']}; {res['ms']:.2f} ms a "
+              f"test image (phase 3: {eval_ms['default']:.2f}); {card}")
+
+    # (b) gloo, world 2 on one card
+    ranks = spawn(_rank_detect, 2, "gloo", [cuda, cuda], args=(2, samples, states))
+    for r, res in enumerate(ranks):
+        for tag, run in res.items():
+            for k, v in run["metrics"].items():
+                assert np.isfinite(v) and 0.0 <= v <= 1.0, (r, tag, k, v)
+            other = ranks[0][tag]
+            assert run["metrics"] == other["metrics"], (r, tag)
+            assert np.array_equal(run["preds"][1], other["preds"][1]), (r, tag)
+            for k, want in MULTI_SHAPES.get(tag, {}).items():
+                assert run["launches"][k] > 0, (r, tag, k, run["launches"])
+                assert want is None or run["shapes"][k] == want, (r, tag, k, run["shapes"])
+    res = ranks[0]
+    print(f"phase 8 (b) gloo world 2, both ranks on {cuda}: launches and their shapes "
+          f"(bank rows for the bank-min kernels, batch otherwise), rank 0:")
+    for tag, run in res.items():
+        print(f"  {tag}: launches {run['launches']}, shapes "
+              f"{ {k: sorted(v) for k, v in run['shapes'].items()} }, bank rows a rank "
+              f"{run['bank_rows']}; {run['ms']:.2f} ms a test image")
+    for tag, (path, _, serve) in MULTI_RUNS[2].items():
+        if serve:
+            _hold_to_replicated(tag, path, ranks, states, samples[1], dev, card)
+    for k in metrics["default"]:
+        delta = abs(res["dp_fit"]["metrics"][k] - metrics["default"][k])
+        print(f"  DP fit vs phase 3 {k}: |delta| {delta:.4f} (limit {DP_METRIC_TOL})")
+        assert delta <= DP_METRIC_TOL, (k, delta)
+    print(f"phase 8 (b): ms a test image, default world 1 (phase 3) "
+          f"{eval_ms['default']:.2f}, world 2 DP {res['dp']['ms']:.2f} (two ranks on one "
+          f"card: the collectives' and the extra process's cost, not scaling); {card}")
+
+    train = spawn(_rank_train, 2, "gloo", [cuda, cuda])[0]
+    torch.cuda.empty_cache()
+    for tm, (_, limit) in MULTI_TRAIN.items():
+        loss, want = _train_step64(dev, tm, ())
+        got_loss, got = train[tm]
+        err = _leaf_err(got, want)
+        print(f"phase 8 (b) train {tm}: one float64 step at 2 x 32 vs one at 64: loss "
+              f"{got_loss:.10g} vs {loss:.10g}, parameters within {err:.2e} of a leaf's "
+              f"largest (limit {limit:g}); {card}")
+        assert abs(got_loss - loss) <= 1e-6 * abs(loss) and err <= limit, (tm, err)
+        torch.cuda.empty_cache()
+    dryrun_multichip(2, "gloo", [cuda, cuda])
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -1467,10 +1768,12 @@ def main() -> int:
     samples = make_synthetic_samples(
         n_train=16, n_test_good=4, n_test_bad=4, size=224, seed=SEED,
         anomaly_radius=(0.13, 0.18), point_capacity=32768)
-    launches, metrics, eval_ms = {}, {}, {}
+    work = tempfile.TemporaryDirectory()
+    states = {name: os.path.join(work.name, f"{name}.npz") for name in PATHS}
+    launches, metrics, eval_ms, preds = {}, {}, {}, {}
     for name in PATHS:
-        launches[name], metrics[name], eval_ms[name] = phase_path(
-            dev, name, samples, args.profile)
+        launches[name], metrics[name], eval_ms[name], preds[name] = phase_path(
+            dev, name, samples, states[name], args.profile)
     for k, limit in THROUGHPUT_ENVELOPE.items():
         delta = abs(metrics["throughput"][k] - metrics["default"][k])
         print(f"throughput vs default {k}: |delta| {delta:.4f} (limit {limit})")
@@ -1479,6 +1782,8 @@ def main() -> int:
     phase_mtfi(dev, samples, card, args.profile)
     phase_backbones(dev, card)
     phase_train(dev, samples, card, args.profile)
+    phase_multi(dev, samples, card, states, preds, metrics, eval_ms)
+    work.cleanup()
 
     rows = []
     for name, key, src, replaces in KERNEL_ROWS:

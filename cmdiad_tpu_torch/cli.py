@@ -23,6 +23,13 @@ epoch's ``final_train_loss`` and ``final_test_loss``, or ``{"status":
 ``convert-ckpt`` writes a reference torch checkpoint in the JAX package's
 npz layout, the same file as the JAX CLI's ``convert-ckpt``.
 
+``detect`` and ``train`` run on several devices under torchrun, one
+process a rank (``--device cuda``: NCCL, rank r on ``cuda:{LOCAL_RANK}``;
+``--device cpu``: gloo), with ``--mesh_shape n`` (and ``--shard_bank true``
+for detection); tables, the JSON line and files come from rank 0:
+
+  torchrun --standalone --nproc_per_node 2 -m cmdiad_tpu_torch.cli detect --mesh_shape 2 ...
+
 The tables are the text of pandas' ``DataFrame.to_markdown(index=False)``
 (tabulate's ``pipe`` format), written without pandas.
 """
@@ -36,9 +43,11 @@ import os
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from cmdiad_tpu_torch.config import Config, TrainConfig
 from cmdiad_tpu_torch.models import convert
+from cmdiad_tpu_torch.parallel.mesh import init_from_env
 
 
 def _parse_int_tuple(s: str) -> tuple:
@@ -159,35 +168,42 @@ def _classes(cfg: Config) -> List[str]:
     return eyecandies_classes() if cfg.dataset_type == "eyecandies" else mvtec3d_classes()
 
 
+def _rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def cmd_detect(args):
     """-> (results {class: metrics}, timings {class: timings})."""
     from cmdiad_tpu_torch.runner import run_detection
 
     cfg = _config_from_args(args).validate()
+    device = init_from_env(args.device)
     timings: Dict[str, Dict[str, float]] = {}
 
     def done(cls, metrics, t):
         timings[cls] = dict(t)
-        print(f"class {cls}: timings " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+        if _rank0():
+            print(f"class {cls}: timings " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
 
     def run():
-        return run_detection(cfg, _classes(cfg), device=args.device, on_class_done=done)
+        return run_detection(cfg, _classes(cfg), device=device, on_class_done=done)
 
     if args.trace_dir:
-        import torch
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
-        if torch.device(args.device).type == "cuda":
+        if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
             results = run()
-        os.makedirs(args.trace_dir, exist_ok=True)
-        path = os.path.join(args.trace_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        print(f"torch.profiler trace written to {path} (chrome://tracing or Perfetto)")
+        if _rank0():
+            os.makedirs(args.trace_dir, exist_ok=True)
+            path = os.path.join(args.trace_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            print(f"torch.profiler trace written to {path} (chrome://tracing or Perfetto)")
     else:
         results = run()
-    write_result_tables(cfg, results)
+    if _rank0():
+        write_result_tables(cfg, results)
     return results, timings
 
 
@@ -195,7 +211,7 @@ def cmd_train(args) -> dict:
     """Train, print and return the JAX CLI's JSON record."""
     from cmdiad_tpu_torch.train.distill import DistillTrainer
     cfg = _config_from_args(args, TrainConfig)
-    trainer = DistillTrainer(cfg, device=args.device)
+    trainer = DistillTrainer(cfg, device=init_from_env(args.device))
     history = trainer.train().history
     if not history["train_loss"]:
         record = {"status": "already complete", "start_epoch": trainer.start_epoch,
@@ -203,7 +219,8 @@ def cmd_train(args) -> dict:
     else:
         record = {"final_train_loss": history["train_loss"][-1],
                   "final_test_loss": history["test_loss"][-1]}
-    print(json.dumps(record))
+    if _rank0():
+        print(json.dumps(record))
     return record
 
 
@@ -247,7 +264,11 @@ def main(argv=None):
     p.add_argument("--kind", required=True, choices=list(_CONVERTERS))
     p.set_defaults(fn=cmd_convert_ckpt)
     args = parser.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if "RANK" in os.environ and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -4,11 +4,12 @@ A copy of ``cmdiad_tpu.config.Config``: the same fields, defaults and
 ``validate``, so a config fingerprint written by either package reads the
 same in the other (``methods.base.state_fingerprint``).  Fields that only
 shape the JAX package's TPU execution (meshes, fused programs, Pallas
-switches) are kept for that reason.  Of those, the port refuses what it
-cannot honour yet (``mesh_shape``, ``shard_bank``, ``ocsvm_backend='jax'``
+switches) are kept for that reason.  ``mesh_shape`` and ``shard_bank`` run
+on a ``torch.distributed`` process group (``parallel``); the port refuses
+what it cannot honour yet (``quantized_blur``, ``ocsvm_backend='jax'``
 raise ``NotImplementedError`` through ``methods.base.refuse_unported`` when
-a method is built) and ignores the ones that shape only the JAX package's
-speed (``use_pallas``, ``fused_eval``, ``cache_train_features``).
+a method is built) and ignores the fields that shape only the JAX
+package's speed (``use_pallas``, ``fused_eval``, ``cache_train_features``).
 ``TrainConfig`` and ``TRAIN_METHODS`` are the JAX package's MTFI training
 configuration, copied the same way.
 """
@@ -189,9 +190,10 @@ class TrainConfig:
     passes it on, so 0 is its behaviour).  ``min_lr`` and ``c_hrnet`` are
     accepted and read by neither package's trainer (the schedule is
     warmup-then-constant; HRNet's head always takes 512 channels).
-    ``mesh_shape`` other than ``()`` raises ``NotImplementedError`` in the
-    port (multi-device training is not ported yet); ``data_axis`` and
-    ``model_axis`` mean something only with it.
+    ``mesh_shape`` is the data-parallel mesh over a process group
+    (``train.distill``): ``(n,)`` or ``(n, m)``, the batch split over its
+    first axis; ``()`` is one device without a group and every rank of
+    one with a group.  ``data_axis`` and ``model_axis`` name the axes.
     """
 
     train_method: str = "HallucinationCrossModality"

@@ -6,8 +6,9 @@ in ``_build/`` beside this file (git-ignored), keyed by a hash of the
 source, the shared headers (``csrc/*.cuh``) and the flags, so an unchanged
 kernel is built once per checkout.
 Every source is compiled by its own ``nvcc`` process, all started together,
-at the first launch of any kernel (or by ``build_all``).  Nothing is built
-or loaded at import time.
+at the first launch of any kernel (or by ``build_all``), under a file lock
+in ``_build/`` so that ranks starting together build each library once.
+Nothing is built or loaded at import time.
 
 ``LAUNCHES`` counts, per kernel, the launches that went through ``launch``:
 a run can reset it, drive a path, and read which kernels that path used.
@@ -16,6 +17,7 @@ a run can reset it, drive a path, and read which kernels that path used.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -70,9 +72,9 @@ def _target(name: str, ptxas_verbose: bool):
     src = CSRC / f"{name}.cu"
     flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
              "-fPIC", *_KERNELS[name][2]]
-    if ptxas_verbose:
-        flags.append("-Xptxas=-v")
-    return src, flags, BUILD_DIR / f"lib{name}-{_digest(src, flags)}.so"
+    # the register report changes no code: the library's name leaves it out
+    so = BUILD_DIR / f"lib{name}-{_digest(src, flags)}.so"
+    return src, flags + ["-Xptxas=-v"] * ptxas_verbose, so
 
 
 def _digest(src: Path, flags) -> str:
@@ -92,6 +94,14 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, str]:
     Raises with the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    with open(BUILD_DIR / "lock", "w") as lock:
+        # another process of this checkout (a rank) may be building: wait
+        # for it and load what it built
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(nvcc, ptxas_verbose)
+
+
+def _build_locked(nvcc: str, ptxas_verbose: bool) -> Dict[str, str]:
     procs, outputs = {}, {}
     for name in _KERNELS:
         src, flags, so = _target(name, ptxas_verbose)

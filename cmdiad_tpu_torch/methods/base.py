@@ -15,6 +15,15 @@ Fitted state persists in the JAX package's npz layout with the same config
 fingerprint, so state fitted by either package serves in the other.  With
 ``save_seg_results`` and ``save_raw_results`` the per-image fused maps and
 the raw image scores are written in the JAX package's file layout.
+
+Under a process group (``parallel.mesh``), as the JAX package does on a
+mesh: ``mesh_shape=(n,)`` is data-parallel, each rank extracting and
+scoring its block of every batch against a replica of the banks, the
+scores gathered so that every rank fits the fusers on the same rows and
+computes the same metrics; ``shard_bank`` keeps a block of each bank's rows
+a rank (``parallel.eval``), the batch replicated.  Files are written by
+rank 0.  ``shard_bank`` without a process group is one shard: the whole
+bank, as on one JAX device.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.fusion.ocsvm import SGDOneClassSVM
@@ -32,6 +42,9 @@ from cmdiad_tpu_torch.metrics import calculate_au_pro, roc_auc_score
 from cmdiad_tpu_torch.ops.bank_min import quantize_rows
 from cmdiad_tpu_torch.ops.coreset import coreset_select
 from cmdiad_tpu_torch.ops.scoring import bank_nn_table, pad_bank, patchcore_score
+from cmdiad_tpu_torch.parallel.eval import dp_score_batch, sharded_score_batch
+from cmdiad_tpu_torch.parallel.mesh import (Mesh, barrier, gather_rows, make_mesh,
+                                            shard_batch, shard_rows)
 
 
 class StateFingerprintMismatch(ValueError):
@@ -68,19 +81,24 @@ _SAMPLE_KEYS = ("rgb", "organized_pc", "depth3", "points_compact")
 
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for the config fields that change what a
-    JAX run computes or where it runs and that the port does not honour
-    yet."""
+    JAX run computes and that the port does not honour yet."""
     if cfg.quantized_blur:
         raise NotImplementedError("quantized_blur is not ported yet")
-    if cfg.mesh_shape:
-        raise NotImplementedError(
-            f"mesh_shape={cfg.mesh_shape!r}: multi-device detection is not ported yet")
-    if cfg.shard_bank:
-        raise NotImplementedError("shard_bank: row-sharded banks are not ported yet")
     if cfg.ocsvm_backend != "sklearn":
         raise NotImplementedError(
             f"ocsvm_backend={cfg.ocsvm_backend!r}: the port fits the fusers "
             "with its numpy SGD, the 'sklearn' semantics, only")
+
+
+def method_mesh(cfg: Config, device) -> Optional[Mesh]:
+    """The mesh a method runs on: ``cfg.mesh_shape`` over the process group
+    (raises without one), else every rank of an initialised group when
+    ``cfg.shard_bank`` asks for shards, else none (one device)."""
+    if cfg.mesh_shape:
+        return make_mesh(cfg.mesh_shape, device)
+    if cfg.shard_bank and dist.is_available() and dist.is_initialized():
+        return make_mesh((dist.get_world_size(),), device)
+    return None
 
 
 class MemoryBankMethod:
@@ -105,6 +123,14 @@ class MemoryBankMethod:
         self.fusion = fusion
         self.fix_cross_stats = fix_cross_stats
         self.class_name: Optional[str] = None
+        self.mesh = method_mesh(cfg, self.device)
+        # shard_bank takes precedence over data-parallel batches, and
+        # cos_dist scores a whole bank, as in the JAX package
+        self.dp_mesh = self.mesh if not cfg.shard_bank else None
+        self.bank_mesh = (self.mesh if cfg.shard_bank and cfg.dist_method_s != "cos_dist"
+                          else None)
+        #: whether this process writes files (rank 0, or the only process)
+        self.writes = self.mesh is None or self.mesh.rank == 0
 
         self._bank_acc: Dict[str, List[torch.Tensor]] = {n: [] for n in self.bank_names}
         # stats-only banks: (sum, sum of squares, count) partials a batch
@@ -133,14 +159,29 @@ class MemoryBankMethod:
     # ---------------- features --------------------------------------------
     def upload(self, batch: dict, keys=None) -> Dict[str, torch.Tensor]:
         """The sample arrays of a stacked batch under ``keys`` (default
-        ``needed_keys``) on the device."""
+        ``needed_keys``) on the device; data-parallel, this rank's block of
+        them (``parallel.mesh.shard_batch``)."""
         keys = self.needed_keys if keys is None else keys
-        return {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
-                for k in _SAMPLE_KEYS if k in batch and k in keys}
+        out = {}
+        for k in _SAMPLE_KEYS:
+            if k in batch and k in keys:
+                arr = np.asarray(batch[k])
+                if self.dp_mesh is not None:
+                    arr = shard_batch(arr, self.dp_mesh)[0]
+                out[k] = torch.as_tensor(arr, device=self.device)
+        return out
+
+    def gather(self, rows: torch.Tensor, n: int) -> torch.Tensor:
+        """The first ``n`` rows of a batch whose rows ``rows`` holds: under
+        data parallelism this rank's block, gathered in batch order."""
+        if self.dp_mesh is not None:
+            rows = gather_rows(rows, self.dp_mesh)
+        return rows[:n]
 
     def extract(self, batch: dict, with_2828: bool = False) -> dict:
         """Backbone features of a stacked batch (numpy arrays -> device),
-        from the keys in ``needed_keys`` only."""
+        from the keys in ``needed_keys`` only; data-parallel, of this
+        rank's block."""
         dev = self.upload(batch)
         return self.backbone.extract(images=dev.get(self.rgb_input_key),
                                      organized_pc=dev.get("organized_pc"),
@@ -212,11 +253,22 @@ class MemoryBankMethod:
                 self.coreset_idx[n] = idx
                 bank = bank[idx]
             self.bank_sizes[n] = int(bank.shape[0])
-            self.banks[n] = pad_bank(bank.to(torch.float32))
+            padded = pad_bank(bank.to(torch.float32))
             self.nn_tables[n] = bank_nn_table(
-                self.banks[n], k=self.cfg.n_reweight,
+                padded, k=self.cfg.n_reweight,
                 n_valid=self.bank_sizes[n], metric=self.cfg.dist_method_s)
+            self.banks[n] = self._place_bank(padded)
         self._bank_aux = {}
+
+    def _place_bank(self, bank: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a padded bank's rows under ``shard_bank``,
+        else the whole bank (a replica on each rank)."""
+        return bank if self.bank_mesh is None else shard_rows(bank, self.bank_mesh)
+
+    def _whole_bank(self, name: str) -> torch.Tensor:
+        """Bank ``name`` with every rank's rows (a collective when sharded)."""
+        bank = self.banks[name]
+        return bank if self.bank_mesh is None else gather_rows(bank, self.bank_mesh)
 
     # ---------------- scoring ---------------------------------------------
     def _bank_kernel_operands(self, name: str) -> Dict[str, torch.Tensor]:
@@ -240,12 +292,17 @@ class MemoryBankMethod:
         """patches (B, Np, D) -> (s (B,), s_map (B, gt, gt))."""
         side = int(np.sqrt(patches.shape[1]))
         mean, std = self.stats[bank_name]
-        return patchcore_score(
-            (patches - mean) / std, self.banks[bank_name], (side, side),
-            out_size=self.cfg.gt_size, metric=self.cfg.dist_method_s,
-            n_reweight=self.cfg.n_reweight, n_valid=self.bank_sizes[bank_name],
-            nn_table=self.nn_tables[bank_name],
-            bank_operands=self._bank_kernel_operands(bank_name))
+        normed, bank = (patches - mean) / std, self.banks[bank_name]
+        kw = dict(out_size=self.cfg.gt_size, metric=self.cfg.dist_method_s,
+                  n_reweight=self.cfg.n_reweight, n_valid=self.bank_sizes[bank_name],
+                  nn_table=self.nn_tables[bank_name],
+                  bank_operands=self._bank_kernel_operands(bank_name))
+        if self.bank_mesh is not None:
+            return sharded_score_batch(self.bank_mesh, normed, bank, (side, side), **kw)
+        if self.dp_mesh is not None:
+            # patches are this rank's block: every rank gets the whole batch
+            return dp_score_batch(self.dp_mesh, normed, bank, (side, side), **kw)
+        return patchcore_score(normed, bank, (side, side), **kw)
 
     # ---------------- late fusion ------------------------------------------
     def run_late_fusion(self):
@@ -293,7 +350,7 @@ class MemoryBankMethod:
         self.predictions.append(fused_map)
         self.gts.append(mask_np)
         self.img_paths.append(rgb_path)
-        if self.cfg.save_seg_results:
+        if self.cfg.save_seg_results and self.writes:
             # results/segmentation/<class>/<rgb file stem>.npz, as the JAX
             # package writes it: the stem alone, so the same file name in
             # two defect directories lands on one file and the last wins
@@ -318,10 +375,18 @@ class MemoryBankMethod:
 
     def save_state(self, path: str) -> None:
         """Persist padded banks, NN tables, true row counts, Q1 stats and the
-        two linear fusers in the JAX package's npz layout (atomic rename)."""
+        two linear fusers in the JAX package's npz layout (atomic rename).
+        On a mesh every rank calls it (a sharded bank is gathered), rank 0
+        writes and the others wait for the file."""
+        banks = {n: self._whole_bank(n) for n in self.banks}
+        if self.writes:
+            self._write_state(path, banks)
+        barrier(self.mesh)
+
+    def _write_state(self, path: str, banks: Dict[str, torch.Tensor]) -> None:
         arrs = {}
         for n in self.banks:
-            arrs[f"bank_{n}"] = self.banks[n].cpu().numpy()
+            arrs[f"bank_{n}"] = banks[n].cpu().numpy()
             arrs[f"nn_{n}"] = self.nn_tables[n].to(torch.int32).cpu().numpy()
         for tag, f in (("detect", self.detect_fuser), ("seg", self.seg_fuser)):
             arrs[f"{tag}_coef"] = np.asarray(f.coef_, np.float64).reshape(-1)
@@ -337,9 +402,10 @@ class MemoryBankMethod:
         os.replace(tmp, path)
 
     def load_state(self, path: str) -> None:
-        """Restore ``save_state`` output (written by either package).
-        Raises StateFingerprintMismatch when the persisted fingerprint
-        differs from the current config."""
+        """Restore ``save_state`` output (written by either package), each
+        bank sharded again under ``shard_bank``.  Raises
+        StateFingerprintMismatch when the persisted fingerprint differs from
+        the current config."""
         with np.load(path) as z:
             meta = json.loads(bytes(z["meta_json"]).decode())
             saved_fp = meta.get("fingerprint")
@@ -358,7 +424,8 @@ class MemoryBankMethod:
             for key in z.files:
                 if key.startswith("bank_"):
                     n = key[len("bank_"):]
-                    self.banks[n] = torch.as_tensor(z[key], device=self.device)
+                    self.banks[n] = self._place_bank(
+                        torch.as_tensor(z[key], device=self.device))
                     self.nn_tables[n] = torch.as_tensor(
                         z[f"nn_{n}"], device=self.device).to(torch.int64)
             self.detect_fuser.load_weights(z["detect_coef"], z["detect_offset"])
@@ -369,7 +436,7 @@ class MemoryBankMethod:
     def calculate_metrics(self) -> dict:
         image_preds = np.asarray(self.image_preds)
         image_labels = np.asarray(self.image_labels)
-        if self.cfg.save_raw_results:
+        if self.cfg.save_raw_results and self.writes:
             # results/raw/<class>_raw_results.csv: score,label,path a line
             out_dir = os.path.join(self.cfg.results_dir, "raw")
             os.makedirs(out_dir, exist_ok=True)

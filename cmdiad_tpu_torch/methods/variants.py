@@ -37,7 +37,9 @@ class BatchedScoresMixin:
 
     ``_batch_modalities`` lists (bank_name, feature_key, s_lambda,
     smap_lambda) per modality.  Tail padding from ``data.loader.
-    stack_batches`` is sliced away with the batch's ``_n``.
+    stack_batches`` is sliced away with the batch's ``_n``.  Data-parallel,
+    the features are this rank's block of the batch; the bank pass gathers
+    them and scoring returns the whole batch's scores.
     """
 
     def _batch_modalities(self):
@@ -47,7 +49,7 @@ class BatchedScoresMixin:
         self.class_name = class_name
         out = self.extract(batch)
         for bank_name, key, _, _ in self._batch_modalities():
-            self._append(bank_name, out[key][:batch["_n"]])
+            self._append(bank_name, self.gather(out[key], batch["_n"]))
 
     def _scores_batch(self, batch: dict):
         """-> (s_vec (B, k), maps (B, k, gt, gt)), λ-weighted, on the device."""
@@ -122,7 +124,9 @@ class DoubleMethod(BatchedScoresMixin, MemoryBankMethod):
     sample is also written to its feature stores, in the JAX package's
     layout: ``<store>/{train,test}/<class><i>.npz``, one counter a store
     across both splits.  The bank and prediction passes then run one
-    sample at a time, as the JAX package's do while stores are active.
+    sample at a time, as the JAX package's do while stores are active; on
+    a mesh every rank extracts the sample, as every JAX device does, and
+    rank 0 writes it.
     """
 
     bank_names = ("xyz", "rgb")
@@ -142,6 +146,8 @@ class DoubleMethod(BatchedScoresMixin, MemoryBankMethod):
     def _maybe_dump(self, split: str, sample: dict, out: dict) -> None:
         """Write one sample (a batch of one) to the active stores; each
         feature crosses to the host once."""
+        if not self.writes:
+            return
         host = {}
 
         def feat(key):
@@ -172,8 +178,8 @@ class DoubleMethod(BatchedScoresMixin, MemoryBankMethod):
         for sample in _sample_batches(batch):
             out = self.extract(sample, with_2828=True)
             self._maybe_dump("train", sample, out)
-            self._append("xyz", out["xyz_patch"])
-            self._append("rgb", out["rgb_patch"])
+            self._append("xyz", self.gather(out["xyz_patch"], 1))
+            self._append("rgb", self.gather(out["rgb_patch"], 1))
 
     def _batch_modalities(self):
         c = self.cfg
@@ -267,7 +273,7 @@ class HallucinationMethod(BatchedScoresMixin, MemoryBankMethod):
         out = self._features(batch, self.needed_keys)
         for name, key in (("rgb", "rgb_patch"), ("xyz", "xyz_patch"),
                           ("fusion", "fusion")):
-            self._append(name, out[key][:n])
+            self._append(name, self.gather(out[key], n))
 
     def _scores_batch(self, batch):
         return self._weighted_scores(self._features(batch, self._main_input_keys()))

@@ -29,7 +29,8 @@ after every linear, the output one included; the hidden width is
 ``int(dim * 2.5)``.  LayerNorm epsilon is 1e-6 (the JAX package's ``nn.
 LayerNorm`` names none, so flax's default).  BatchNorm runs on its running
 statistics, or with ``train=True`` as flax's does in training (see
-``batch_norm``).  Parameters stay float32; ``dtype`` is the compute type.
+``batch_norm``), its moments over every rank's batch after
+``sync_batch_norm``.  Parameters stay float32; ``dtype`` is the compute type.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from torch import nn
 
 from cmdiad_tpu_torch.models.vit import layer_norm, linear
 from cmdiad_tpu_torch.ops.pooling import bicubic_resize
+from cmdiad_tpu_torch.parallel.mesh import all_reduce_sum
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
@@ -67,21 +69,40 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool = False) -> torc
     *biased* variance E[x²]−E[x]², both in at least float32 and the
     variance clipped at 0, normalise the batch, and the running statistics
     move to ``0.9 * running + 0.1 * batch`` with that same variance (torch
-    would fold in the unbiased one).
+    would fold in the unbiased one).  After ``sync_batch_norm`` the moments
+    are those of the global batch, every rank's block of it: (sum, sum of
+    squares, count) are summed over the ranks with a sum whose backward
+    sums the gradients over the ranks too, as a jitted mean over a batch
+    sharded across devices is in the JAX package.
     """
     if not train:
         return F.batch_norm(x, bn.running_mean.to(x.dtype), bn.running_var.to(x.dtype),
                             bn.weight.to(x.dtype), bn.bias.to(x.dtype), False, 0.0,
                             bn.eps)
     xf = _at_least_f32(x)
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+    group = getattr(bn, "sync_group", None)
+    if group is None:
+        mean, ex2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+    else:
+        c = xf.shape[1]
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                         xf.new_full((1,), xf.numel() // c)]), group)
+        mean, ex2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    var = torch.clamp_min(ex2 - mean * mean, 0.0)
     with torch.no_grad():
         for running, batch in ((bn.running_mean, mean), (bn.running_var, var)):
             running.copy_(BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     return y.to(x.dtype)
+
+
+def sync_batch_norm(net: nn.Module, group) -> None:
+    """Take every training BatchNorm moment of ``net`` over the ranks of
+    the process ``group`` (None: over this rank's batch alone)."""
+    for m in net.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.sync_group = group
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

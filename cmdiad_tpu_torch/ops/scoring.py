@@ -101,11 +101,14 @@ def bank_nn_table(bank: torch.Tensor, k: int = 3, n_valid=None,
 def patchcore_finish(patch, bank, min_val, min_idx, feat_hw,
                      out_size: int = 224, metric: str = "l2",
                      n_reweight: int = 3, blur_radius: float = 4.0,
-                     n_valid=None, nn_table=None):
+                     n_valid=None, nn_table=None, bank_rows=None):
     """Everything after the bank min pass, for a batch: eq. 7 reweight,
     bilinear upsample, blur.
 
     patch (B, Np, D), min_val/min_idx (B, Np) -> (s (B,), s_map (B, out, out)).
+    ``bank_rows(idx)`` returns the bank's rows at ``idx`` where the caller
+    does not hold the whole bank (a row-sharded bank, with ``nn_table``);
+    by default they are ``bank[idx]``.
     """
     b = patch.shape[0]
     rows = torch.arange(b, device=patch.device)
@@ -121,7 +124,8 @@ def patchcore_finish(patch, bank, min_val, min_idx, feat_hw,
             w_dist = mask_padding_cols(w_dist, n_valid)
         nn_idx = _k_smallest(w_dist, n_reweight)
     # nn_idx[:, 0] is m_star itself (distance 0); eq. 7 uses the others
-    m_star_knn = torch.linalg.norm(m_test[:, None, :] - bank[nn_idx[:, 1:]], dim=-1)
+    neighbours = bank[nn_idx[:, 1:]] if bank_rows is None else bank_rows(nn_idx[:, 1:])
+    m_star_knn = torch.linalg.norm(m_test[:, None, :] - neighbours, dim=-1)
 
     # eq. 7, max-subtracted: the naive exp(s*/sqrt(D)) overflows float32
     # for patches far from the bank; identical in exact arithmetic

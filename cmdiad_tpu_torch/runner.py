@@ -14,6 +14,12 @@ is persisted there; a mismatched or unreadable file is logged and refit.
 ``run_detection`` runs several classes on one backbone and one MTFI
 fusion net, decoding the next class on a thread while the current one runs
 on the card.
+
+On a mesh (``cfg.mesh_shape``, ``cfg.shard_bank`` under a process group)
+every rank runs the runner on its own device and reads the samples itself;
+rank 0 writes the fitted-state cache (``save_state`` holds the others at a
+barrier until the file is there), and a cache is served only where every
+rank could load it, so all ranks fit or all serve.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from cmdiad_tpu_torch.data.loader import iter_samples, stack_batches
 from cmdiad_tpu_torch.data.mvtec3d import MVTec3DDataset
 from cmdiad_tpu_torch.methods.base import StateFingerprintMismatch
 from cmdiad_tpu_torch.methods.registry import build_backbone, build_fusion, build_method
+from cmdiad_tpu_torch.parallel.mesh import all_agree
 
 log = logging.getLogger("cmdiad_tpu_torch")
 
@@ -52,8 +59,8 @@ class CMDIADRunner:
         self.timings: Dict[str, float] = {}
 
     def _now(self) -> float:
-        """Host clock after the device's queued work has finished, so each
-        phase's time holds its own device work."""
+        """Host clock after this rank's device has finished its queued
+        work, so each phase's time holds its own device work."""
         if self.method.device.type == "cuda":
             torch.cuda.synchronize(self.method.device)
         return time.perf_counter()
@@ -95,8 +102,12 @@ class CMDIADRunner:
         ``cfg.max_sample`` train samples (``train_samples``, or the
         dataset's train split when None), or the cached fitted state."""
         cache = self._bank_cache_path(class_name)
-        if cache and os.path.exists(cache) and self._load_cached(class_name, cache):
-            return
+        if cache:
+            served = os.path.exists(cache) and self._load_cached(class_name, cache)
+            if self.method.mesh is not None:
+                served = all_agree(served, self.method.mesh)
+            if served:
+                return
         split = _train_split(self.cfg)
         bs = max(self.cfg.batch_size, 1)
         t0 = self._now()

@@ -23,12 +23,22 @@
     reads the JAX trainer's files as well as its own, and a file without
     ``opt_state`` (initial weights) leaves the optimizer fresh.
 
-Single device only: ``mesh_shape`` raises ``NotImplementedError``.
+Data-parallel over a process group (``TrainConfig.mesh_shape``; the JAX
+trainer's batch sharded over the ``'data'`` axis, state replicated): every
+rank draws the same permutation from the seed and takes its contiguous
+block of each batch, so the global batch is the one-device batch; one
+flattened ``all_reduce`` averages the gradients and the losses (every loss
+is a sum over the batch divided by the batch size, so the mean of the
+ranks' losses is the global batch's loss); training BatchNorm takes its
+moments over the global batch (``models.hallucination.sync_batch_norm``);
+every rank applies the same update, and sees the same averaged loss, so the
+NaN abort is agreed; rank 0 writes the checkpoints and ``metrics.jsonl``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import json
 import math
@@ -39,14 +49,17 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cmdiad_tpu_torch.config import TrainConfig
 from cmdiad_tpu_torch.data.feature_store import FeatureStore
 from cmdiad_tpu_torch.device import resolve_device
 from cmdiad_tpu_torch.models import names
 from cmdiad_tpu_torch.models.backbone import init_weights
-from cmdiad_tpu_torch.models.hallucination import FtoFConv, FtoFMlp, FtoIConv, FtoIMlp
+from cmdiad_tpu_torch.models.hallucination import (FtoFConv, FtoFMlp, FtoIConv, FtoIMlp,
+                                                   sync_batch_norm)
 from cmdiad_tpu_torch.models.hrnet import HRNet
+from cmdiad_tpu_torch.parallel.mesh import Mesh, barrier, make_mesh, shard_batch
 from cmdiad_tpu_torch.train.checkpoint import flatten, load_meta, load_pytree, save_pytree
 from cmdiad_tpu_torch.train.optim import Adam, warmup_constant_lr
 
@@ -136,6 +149,23 @@ def load_training_arrays(cfg: TrainConfig, split: str) -> Dict[str, np.ndarray]:
     raise ValueError(tm)
 
 
+def train_mesh(cfg: TrainConfig, device) -> Optional[Mesh]:
+    """The data-parallel mesh of a training run: ``cfg.mesh_shape`` over
+    the process group (raises without one); with ``()``, every rank of an
+    initialised group (the JAX trainer's widest data axis that divides the
+    batch: a narrower one would leave ranks idle, which raises), or none."""
+    if cfg.mesh_shape:
+        mesh = make_mesh(cfg.mesh_shape, device)
+    elif dist.is_available() and dist.is_initialized():
+        mesh = make_mesh((dist.get_world_size(),), device)
+    else:
+        return None
+    if cfg.batch_size % mesh.shape[0]:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over the "
+                         f"{mesh.shape[0]} ranks of the data axis")
+    return mesh
+
+
 @dataclasses.dataclass
 class TrainResult:
     params: dict        # flax names and layouts, numpy leaves
@@ -145,23 +175,23 @@ class TrainResult:
 
 class DistillTrainer:
     """Trains the ``cfg.train_method`` net on ``device`` (the card by
-    default; raises without one).  ``arrays``/``test_arrays`` replace the
-    dumps under ``cfg.data_path``; ``feature_dim`` is the feature width
-    (768 for the reference's backbones)."""
+    default; raises without one; under a process group this rank's
+    device).  ``arrays``/``test_arrays`` replace the dumps under
+    ``cfg.data_path``, the whole of them on every rank; ``feature_dim`` is
+    the feature width (768 for the reference's backbones)."""
 
     def __init__(self, cfg: TrainConfig, feature_dim: int = 768,
                  arrays: Optional[Dict[str, np.ndarray]] = None,
                  test_arrays: Optional[Dict[str, np.ndarray]] = None,
                  device="cuda"):
-        if cfg.mesh_shape:
-            raise NotImplementedError(
-                f"mesh_shape={cfg.mesh_shape!r}: multi-device training is not "
-                "ported yet (ROADMAP Queue 1 item 4); leave it () for one device")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = train_mesh(cfg, self.device)
         self.net, self.table, self.loss_fn = build_train_setup(cfg, feature_dim)
         init_weights(self.net, cfg.seed, fan_in_scaled=True)
         self.net.to(self.device)
+        if self.mesh is not None:
+            sync_batch_norm(self.net, self.mesh.group or dist.group.WORLD)
         self.params = dict(self.net.named_parameters())
 
         self.arrays = arrays if arrays is not None else load_training_arrays(cfg, "train")
@@ -186,11 +216,29 @@ class DistillTrainer:
     # -- one step ------------------------------------------------------------
     def loss_and_grads(self, batch: Batch):
         """Loss, aux losses and {param name: gradient} of one training
-        forward (BatchNorm statistics move, as in a step)."""
+        forward (BatchNorm statistics move, as in a step); on a mesh
+        ``batch`` is this rank's block and all three are the global
+        batch's."""
         loss, aux = self.loss_fn(self.net, batch, True)
         grads = torch.autograd.grad(loss, list(self.params.values()))
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, dict(
-            zip(self.params, grads))
+        loss, *rest = self._mean_over_ranks(
+            [loss.detach(), *(v.detach() for v in aux.values()), *grads])
+        return (loss, dict(zip(aux, rest[:len(aux)])),
+                dict(zip(self.params, rest[len(aux):])))
+
+    def _mean_over_ranks(self, tensors):
+        """Each tensor's mean over the ranks, by one all_reduce of them all
+        flattened into one vector (of their widest dtype)."""
+        if self.mesh is None:
+            return tensors
+        dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+        flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+        dist.all_reduce(flat, group=self.mesh.group)
+        flat /= self.mesh.size
+        out = []
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            out.append(part.view_as(t).to(t.dtype))
+        return out
 
     def step(self, batch: Batch):
         loss, aux, grads = self.loss_and_grads(batch)
@@ -200,7 +248,8 @@ class DistillTrainer:
     @torch.no_grad()
     def evaluate(self, batch: Batch):
         loss, aux = self.loss_fn(self.net, batch, False)
-        return loss, aux
+        loss, *aux_vals = self._mean_over_ranks([loss, *aux.values()])
+        return loss, dict(zip(aux, aux_vals))
 
     def _batches(self, arrays, rng, batch_size, drop_last=True):
         n = len(next(iter(arrays.values())))
@@ -210,6 +259,8 @@ class DistillTrainer:
             idx = order[i:i + batch_size]
             if len(idx) < batch_size:   # the test tail: pad with repeats
                 idx = np.concatenate([idx, np.repeat(idx[-1:], batch_size - len(idx))])
+            if self.mesh is not None:
+                idx = shard_batch(idx, self.mesh, self.mesh.shape[0])[0]
             yield {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(self.device)
                    for k, v in arrays.items()}
 
@@ -259,15 +310,21 @@ class DistillTrainer:
         return max(paths, key=epoch_of)
 
     def _log_metrics(self, record: dict):
-        if not self.cfg.output_dir:
+        if not self.cfg.output_dir or not self._writes:
             return
         os.makedirs(self.cfg.output_dir, exist_ok=True)
         with open(f"{self.cfg.output_dir}/metrics.jsonl", "a") as f:
             f.write(json.dumps(record) + "\n")
 
+    @property
+    def _writes(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
     def _save(self, epoch: int) -> None:
-        save_pytree(f"{self.cfg.output_dir}/checkpoint-{epoch}.npz", self.state_tree(),
-                    meta={"epoch": epoch, "train_method": self.cfg.train_method})
+        if self._writes:
+            save_pytree(f"{self.cfg.output_dir}/checkpoint-{epoch}.npz", self.state_tree(),
+                        meta={"epoch": epoch, "train_method": self.cfg.train_method})
+        barrier(self.mesh)
 
     # -- the loop ------------------------------------------------------------
     def train(self) -> TrainResult:

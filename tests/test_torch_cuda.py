@@ -2,7 +2,8 @@
 
 Every test here needs a CUDA card and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only the
-port's dependencies:
+port's dependencies (the multi-device cases spawn their ranks with
+``cmdiad_tpu_torch.parallel.launch`` and ``tests/torch_parallel_workers.py``):
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
@@ -590,3 +591,38 @@ def test_training_step_on_the_card_matches_the_cpu(dev, rng, tm):
         if dtype == torch.float64:
             assert _leaf_err(card, {k: v for k, v in cpu.items()
                                     if k.startswith("params")}) <= 1e-4
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_sharded_bank_min_on_the_card(dev, rng, backend, world):
+    """The bank-min kernels on each rank's shard (NCCL with one rank, gloo
+    with two ranks on the one card): one launch a metric a rank, on the
+    shard's rows; the same answer on every rank; at world 1 the one-device
+    result bit for bit, at world 2 the exact distance of the chosen row,
+    never above the one-device choice's."""
+    from cmdiad_tpu_torch.parallel.launch import spawn
+    import torch_parallel_workers as workers
+    bank = rng.normal(size=(4096, 768)).astype(np.float32)
+    bank[10 + 2048] = bank[10]                 # a duplicate on the second shard
+    q = rng.normal(size=(300, 768)).astype(np.float32)
+    q[7] = bank[10]
+    got = spawn(workers.sharded_min_launches, world, backend, ["cuda:0"] * world,
+                args=(bank, q, ("l2", "l2_int8")))
+    tb, tq = torch.from_numpy(bank).to(dev), torch.from_numpy(q).to(dev)
+    for m, fn in (("l2", bm.bank_min_bf16), ("l2_int8", bm.bank_min_int8)):
+        want_v, want_i = (t.cpu().numpy() for t in fn(tq, tb))
+        kernel = "bank_min" if m == "l2" else "bank_min_int8"
+        for res in got:
+            v, i, seen = res[m]
+            assert seen == [(kernel, 4096 // world)], seen
+            np.testing.assert_array_equal(v, got[0][m][0])
+            np.testing.assert_array_equal(i, got[0][m][1])
+        v, i, _ = got[0][m]
+        assert i[7] == 10 and v[7] == 0.0
+        if world == 1:
+            np.testing.assert_array_equal(v, want_v)
+            np.testing.assert_array_equal(i, want_i)
+        else:
+            exact = np.sqrt(((q.astype(np.float64) - bank[i]) ** 2).sum(1))
+            np.testing.assert_allclose(v, exact, rtol=1e-5, atol=1e-5)
+            assert np.all(v <= want_v + 1e-6)

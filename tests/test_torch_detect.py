@@ -311,9 +311,25 @@ def test_fitted_state_cache(cache_fit, backbones, how, tmp_path):
 
 @pytest.mark.parametrize("field", [dict(mesh_shape=(8,)), dict(shard_bank=True),
                                    dict(ocsvm_backend="jax")])
-def test_unhonoured_fields_raise(backbones, field):
-    with pytest.raises(NotImplementedError, match=next(iter(field))):
-        build_method(Config(rgb_size=SIZE, **field), backbone=backbones[2])
+def test_unhonoured_fields_raise(backbones, cache_fit, field):
+    """``ocsvm_backend='jax'`` is not ported; ``mesh_shape`` needs a process
+    group and, without one, names torchrun; ``shard_bank`` without one is
+    one shard, the whole bank, scoring exactly as the unsharded method (the
+    JAX package on one device)."""
+    if "ocsvm_backend" in field:
+        with pytest.raises(NotImplementedError, match="ocsvm_backend"):
+            build_method(Config(rgb_size=SIZE, **field), backbone=backbones[2])
+    elif "mesh_shape" in field:
+        with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 8"):
+            build_method(Config(rgb_size=SIZE, **field), backbone=backbones[2])
+    else:
+        cfg, metrics, _ = cache_fit
+        runner = CMDIADRunner(cfg.replace(**field), backbone=backbones[2], device="cpu")
+        runner.fit("widget")                      # served from the cache
+        assert "bank_load_s" in runner.timings
+        assert runner.method.bank_mesh is None
+        assert runner.method.banks["rgb"].shape[0] == 8192
+        assert runner.evaluate("widget") == metrics
 
 
 @pytest.mark.parametrize("method,absent", [("DINO", "xyz_patches"),

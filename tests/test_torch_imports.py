@@ -35,6 +35,7 @@ def test_no_jax_or_jax_package_import_in_sources():
     offenders = []
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert {PKG / "parallel" / f"{m}.py" for m in ("mesh", "launch", "eval", "dryrun")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -62,6 +63,7 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(cmdiad_tpu_torch.__path__, 'cmdiad_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import cmdiad_tpu_torch.runner, cmdiad_tpu_torch.train.distill\n"
+        "import cmdiad_tpu_torch.parallel.dryrun, cmdiad_tpu_torch.parallel.launch\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cmdiad_tpu', 'PIL', 'pandas')\n"
         "       or m.startswith(('jax.', 'flax.', 'cmdiad_tpu.', 'PIL.', 'pandas.'))]\n"
         "print(len([m for m in sys.modules if m.startswith('cmdiad_tpu_torch')]))\n"
@@ -96,6 +98,33 @@ def test_cli_train_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "final_train_loss" in out.stdout
+
+
+def test_parallel_dry_run_loads_no_jax(tmp_path):
+    """``parallel.dryrun`` on two gloo CPU ranks from a fresh interpreter:
+    the ranks import the port alone, and neither they nor the parent load
+    JAX (each rank reports its modules)."""
+    code = (
+        "import sys\n"
+        "from cmdiad_tpu_torch.parallel.dryrun import dryrun_multichip\n"
+        "from cmdiad_tpu_torch.parallel.launch import spawn\n"
+        "def jax_modules(device):\n"
+        "    import cmdiad_tpu_torch.parallel.dryrun\n"
+        "    return [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cmdiad_tpu')]\n"
+        "if __name__ == '__main__':\n"
+        "    dryrun_multichip(2, 'gloo', ['cpu', 'cpu'])\n"
+        "    bad = spawn(jax_modules, 2, 'gloo', ['cpu', 'cpu'])\n"
+        "    bad.append([m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cmdiad_tpu')])\n"
+        "    assert not any(bad), bad\n")
+    script = tmp_path / "dryrun_without_jax.py"     # spawned ranks import it by path
+    script.write_text(code)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["OMP_NUM_THREADS"] = "1"
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "-- OK" in out.stdout
 
 
 @pytest.mark.parametrize("build", ["backbone", "runner", "device", "trainer", "cli_train"])

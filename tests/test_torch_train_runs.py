@@ -166,7 +166,9 @@ def test_auto_resume(rng, tmp_path):
 
 
 def test_mesh_shape_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    """A data-parallel mesh needs a process group: without one it raises
+    and names torchrun (``test_torch_parallel_train.py`` trains on one)."""
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         DistillTrainer(TrainConfig(mesh_shape=(2,)), W, arrays={}, test_arrays={},
                        device="cpu")
 
