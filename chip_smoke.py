@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile DIR  # also profile one evaluation pass
                                          # of each path and one training
                                          # step of each train method into DIR
+    python3 chip_smoke.py --full_ocsvm   # also time one full 'jax' OCSVM fit
 
 Phases:
   1. build the hand-written CUDA kernels from ``cmdiad_tpu_torch/csrc``;
@@ -77,7 +78,20 @@ Phases:
      predictions on the mesh's rows to phase 3's; a data-parallel fit's
      metrics; one float64 training step of FtoFMlp and of HRNet at 2 x 32
      against one at 64; the dry run.  Two ranks on one card measure the
-     collectives and the extra process, not scaling.
+     collectives and the extra process, not scaling;
+  9. the tail: (a) three 800² scans at MVTec 3D-AD's density (0.125 mm a
+     pixel: a tilted plane, a domed object, a separate tuft) written to a
+     temporary tree and rewritten by ``cli.main(["preprocess", ...,
+     "--device", "cuda"])``, its RANSAC, DBSCAN and IO times per sample,
+     the DBSCAN kernel's roots and counts held to its plain version on the
+     full scene and the card's RANSAC plane to the CPU's on the same draw;
+     (b) a 512² Eyecandies tree through ``preprocess-eyecandies`` on the
+     card against the CPU; (c) the default path with ``quantized_blur``,
+     every blurred map bit-equal to the CPU's blur of the same score map;
+     (d) its fusers fitted with ``ocsvm_backend='jax'`` on the card
+     (``TAIL_OCSVM_EPOCHS`` epochs; ``--full_ocsvm`` also times all 1000)
+     against the CPU fit, beside the numpy fitter's time; (e) ``cli
+     heatmap`` over the maps phase 4 saved.
 
 Prints the card, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -91,6 +105,7 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -543,6 +558,9 @@ KERNEL_ROWS = (
      "cmdiad_tpu/ops/flash_attn.py:59"),
     ("int8_dot", "int8_dot", "cmdiad_tpu_torch/csrc/int8_dot.cu",
      "benchmarks/probe_int8_dot.py:19"),
+    # replaces no TPU kernel: the JAX package's host routine
+    ("dbscan", "dbscan", "cmdiad_tpu_torch/csrc/dbscan.cu",
+     "cmdiad_tpu/native/cmdiad_native.cc:268 dbscan (host C++)"),
 )
 
 # the kernels each detection path must launch; the JSON row of a kernel
@@ -907,7 +925,9 @@ def _detect(args):
     return results, timings, dict(kernels.LAUNCHES)
 
 
-def phase_detect(card: str, memory_eval_ms: float):
+def phase_detect(card: str, memory_eval_ms: float, results_root: str) -> str:
+    """-> the directory of the first run's saved segmentation maps (under
+    ``results_root``, for phase 9's heatmaps)."""
     from cmdiad_tpu_torch.data import png, tiffio
     from cmdiad_tpu_torch.data.loader import iter_samples
     from cmdiad_tpu_torch.data.mvtec3d import MVTec3DDataset
@@ -947,9 +967,10 @@ def phase_detect(card: str, memory_eval_ms: float):
                   f"{serial:.1f} ms a sample on one thread, of which the RGB "
                   f"PNG's decode {decode:.1f} ms; {card}")
 
-        cache, res = os.path.join(tmp, "cache"), os.path.join(tmp, "results")
+        cache, res = os.path.join(tmp, "cache"), os.path.join(results_root, "results")
         common = ["--dataset_path", root, "--results_dir", res]
-        first, t_first, launches = _detect([*common, "--bank_cache_dir", cache])
+        first, t_first, launches = _detect([*common, "--bank_cache_dir", cache,
+                                            "--save_seg_results", "true"])
         print(f"detect DINO+Point_MAE launches {launches}")
         for k in ("bank_min", "fps", "interp"):
             assert launches[k] > 0, f"{k} was not launched by detect"
@@ -980,6 +1001,7 @@ def phase_detect(card: str, memory_eval_ms: float):
                 assert launches[k] > 0, f"{method} did not launch {k}"
             for k in must_not:
                 assert launches[k] == 0, f"{method} launched {k}"
+    return os.path.join(res, "segmentation")
 
 
 # --------------------------------------------------------------------------
@@ -1234,6 +1256,7 @@ TRAIN_VARIANTS = {"bfloat16": dict(compute_dtype="bfloat16"), "accum_iter=2": di
 TRAIN_RTOL = 1e-4
 TRAIN_BATCH = 64   # the reference's batch, for the step times
 # phase 7's MTFI presets serving a trained net: preset -> train method
+SERVE_OCSVM_EPOCHS = 2
 TRAINED_PRESETS = {"mtfi_ftof_xyz_main": "HallucinationCrossModality",
                    "mtfi_itof_rgb_main": "RGBInputToXYZFeatureHRNET"}
 
@@ -1438,7 +1461,12 @@ def phase_train(dev, samples, card: str, profile=None):
         # stage 3: the trained nets serve few-modal inference
         for preset, tm in TRAINED_PRESETS.items():
             must, must_not = MTFI_KERNELS[preset]
-            cfg = method_preset(preset, batch_size=8, seed=SEED, fusion_module_path=ckpts[tm])
+            # the calibration's numpy OCSVM took 42-46 s of FtoF xyz main's
+            # serving run on an H100 (some 3 s an epoch, up to 20 epochs)
+            # and repeats phase 5's; its epochs are cut to keep the script
+            # in time
+            cfg = method_preset(preset, batch_size=8, seed=SEED, fusion_module_path=ckpts[tm],
+                                ocsvm_maxiter=SERVE_OCSVM_EPOCHS)
             keep = (("rgb",) if cfg.main_modality == "rgb"
                     else ("organized_pc", "points_compact")) + _META_KEYS
             few = [{k: v for k, v in smp.items() if k in keep} for smp in test]
@@ -1737,12 +1765,318 @@ def phase_multi(dev, samples, card: str, states, preds, metrics, eval_ms):
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+# --------------------------------------------------------------------------
+# phase 9: the tail — preprocessing, the quantized blur, the 'jax' fitter,
+# heatmaps
+# --------------------------------------------------------------------------
+
+# MVTec 3D-AD-density scans: 800 x 800 pixels at 0.125 mm a pixel (its
+# objects are some 10 cm across 800 pixels), a tilted background plane, a
+# domed object on a step and a separate tuft; the reference's eps = 6 mm
+# then holds about 7000 points
+TAIL_SIZE, TAIL_PITCH, TAIL_SAMPLES = 800, 1.25e-4, 3
+# the H100 SXM sheet's float64 rate (34 TFLOP/s counting an FMA as two);
+# dbscan.cu is built without FMA, so each of a pair test's 8 float64
+# operations is one instruction at half that rate
+PEAK_FP64_NO_FMA = 34e12 / 2
+# the fusers' epochs on the card in this phase: the JAX fitter runs every
+# one of max_iter epochs over the seg fuser's 802816 calibration rows, about
+# a quarter of a second an epoch on the card; --full_ocsvm times all 1000
+TAIL_OCSVM_EPOCHS = 10
+
+
+def _scan_sample(rng, i: int):
+    """(pc (800, 800, 3) float32, rgb uint8, gt uint8) of scan ``i``."""
+    size, pitch = TAIL_SIZE, TAIL_PITCH
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64) / size     # in image widths
+    z = 0.55 + (0.06 * (xx - 0.5) - 0.04 * (yy - 0.5)) * size * pitch
+    r = 0.275 + 0.025 * i
+    r2 = (xx - 0.5 - 0.0375 * i) ** 2 + (yy - 0.5) ** 2
+    obj = r2 < r ** 2
+    z = z - np.where(obj, 0.008 + 0.012 * np.sqrt(np.clip(1 - r2 / r ** 2, 0, 1)), 0.0)
+    tuft = (yy - 0.1625) ** 2 + (xx - 0.825) ** 2 < 0.0175 ** 2
+    z = z - np.where(tuft, 0.02, 0.0)
+    xx, yy = xx * size, yy * size
+    pc = np.stack([(xx - size / 2) * pitch, (yy - size / 2) * pitch, z], -1)
+    pc = (pc + rng.normal(0, 4e-5, pc.shape)).astype(np.float32)
+    pc[rng.random((size, size)) < 0.01] = 0.0
+    shade = ((z - z.min()) / np.ptp(z) * 200).astype(np.uint8)
+    rgb = np.stack([shade, 255 - shade, shade // 2], -1)
+    gt = np.zeros((size, size), np.uint8)
+    if i == 1:
+        gt[size // 2 - 20:size // 2 + 20, size // 2:size // 2 + 40] = 255
+    return pc, rgb, gt, obj, tuft
+
+
+def _tail_tmp() -> str:
+    """A temporary directory whose path holds neither 'xyz' nor 'tiff'
+    (the preprocessing finds a sample's rgb and gt files by replacing them)."""
+    while True:
+        path = tempfile.mkdtemp(prefix="tail_")
+        if "xyz" not in path and "tiff" not in path:
+            return path
+        os.rmdir(path)
+
+
+def check_dbscan(dev, pc: np.ndarray):
+    """The kernel against its plain version, both on the card, on the
+    points the preprocessing clusters: the scan's plane removed, padded,
+    its valid points.  -> the kernels line's row."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmdiad_tpu_torch.preprocess import cluster, mvtec, plane
+    t = torch.from_numpy(pc).to(dev)
+    removed, _ = plane.remove_plane(t, torch.zeros_like(t, dtype=torch.uint8))
+    flat = mvtec.pad_to_square(removed).reshape(-1, 3)
+    pts = flat[(flat != 0).all(dim=1)].contiguous()
+    eps, min_points = 0.006, 30
+    root, count = cluster._roots_cuda(pts, eps, min_points)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_root, p_count = cluster._roots_plain(pts, eps, min_points, chunk_elems=1 << 26)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(count, p_count), "dbscan: neighbour counts differ"
+    assert torch.equal(root, p_root), "dbscan: roots differ"
+    labels = cluster._rank(root)
+    n = pts.shape[0]
+    pairs = (int(count.sum()) - n) // 2
+    ms = _time_ms(lambda: cluster._roots_cuda(pts, eps, min_points), 3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cluster._roots_cuda(pts, eps, min_points)
+        torch.cuda.synchronize()
+    split = {e.key: getattr(e, "device_time_total", 0) / 1e3 for e in prof.key_averages()
+             if any(k in e.key for k in ("count_neighbours", "unite_cores",
+                                         "flatten_cores", "label_points"))}
+    # each unordered eps-pair needs one float64 test (3 sub, 3 mul, 2 add);
+    # read the points once, write a root a point
+    bound_ms, bound_by = _bound(8.0 * pairs, PEAK_FP64_NO_FMA, n * 12 + n * 8)
+    err = float(torch.max(torch.abs(root - p_root))) if n else 0.0
+    print(f"dbscan on the card on the full scene ({TAIL_SIZE}² scan at {TAIL_PITCH * 1e3} mm a "
+          f"pixel, eps {eps}, min_points {min_points}): {n} valid points, {pairs} eps-pairs, "
+          f"{int((count >= min_points).sum())} core, {int(labels.max()) + 1} clusters, "
+          f"{int((labels < 0).sum())} noise; roots and counts equal to the plain version's "
+          f"(also on the card); wrapper {ms:.3f} ms (grid sort included), plain {plain_ms:.1f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); kernels (profiler, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def _eyecandies_tree(rng, root: str, size: int = 512, n_train: int = 2, n_test: int = 2):
+    """A raw Eyecandies tree written with the port's writers: 16-bit depth,
+    its normalisation yaml, a camera pose, the rgb and the mask (test 1 has
+    a defect), padded to the reference's 17 files a sample."""
+    from cmdiad_tpu_torch.data import png
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    c, s_ = np.cos(0.1), np.sin(0.1)
+    pose = np.array([[1, 0, 0, 0.01], [0, c, -s_, 0.02], [0, s_, c, 0.3], [0, 0, 0, 1.0]])
+    for split, n in (("train", n_train), ("test_public", n_test)):
+        d = os.path.join(root, "Candy", split, "data")
+        os.makedirs(d)
+        for i in range(n):
+            stem = str(i).zfill(3 if split == "train" else 2)
+            bowl = 0.3 + 0.4 * ((xx - 0.5) ** 2 + (yy - 0.5) ** 2) + rng.uniform(0, 0.01, xx.shape)
+            png.imwrite_grey16(os.path.join(d, f"{stem}_depth.png"),
+                               (np.clip(bowl, 0, 1) * 65535).astype(np.uint16))
+            with open(os.path.join(d, f"{stem}_info_depth.yaml"), "w") as fh:
+                fh.write("normalization:\n  max: 1.5\n  min: 0.5\n")
+            np.savetxt(os.path.join(d, f"{stem}_pose.txt"), pose)
+            png.imwrite(os.path.join(d, f"{stem}_image_4.png"),
+                        rng.integers(0, 256, (size, size, 3)).astype(np.uint8))
+            mask = np.zeros((size, size, 3), np.uint8)
+            if split == "test_public" and i == 1:
+                mask[size // 5:size // 3, size // 5:size // 3] = 255
+            png.imwrite(os.path.join(d, f"{stem}_mask.png"), mask)
+            for j in range(12):
+                with open(os.path.join(d, f"{stem}_pad{j}.txt"), "w") as fh:
+                    fh.write("x")
+
+
+def _ulps(a, b) -> int:
+    ia = np.ascontiguousarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.ascontiguousarray(b, np.float32).view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int(np.abs(ia - ib).max(initial=0))
+
+
+def phase_tail(dev, samples, card: str, seg_dir: str, full_ocsvm: bool = False):
+    """(a) ``cli preprocess`` over MVTec-density scans on the card, its
+    phases timed, the DBSCAN kernel and the card's RANSAC held to their
+    CPU / plain counterparts; (b) ``cli preprocess-eyecandies`` on the card
+    against the CPU; (c) the default path with ``quantized_blur=True``, its
+    maps bit-equal to the CPU's blur of the same score maps; (d) the fusers
+    fitted with ``ocsvm_backend='jax'`` on the card against the CPU fit;
+    (e) ``cli heatmap`` over phase 4's saved maps.  -> (the dbscan row,
+    its launches in (a))."""
+    import torch
+    from unittest import mock
+    from cmdiad_tpu_torch import cli, kernels
+    from cmdiad_tpu_torch.config import Config
+    from cmdiad_tpu_torch.data import png, tiffio
+    from cmdiad_tpu_torch.fusion import ocsvm
+    from cmdiad_tpu_torch.ops import blur, scoring
+    from cmdiad_tpu_torch.preprocess import eyecandies, plane
+    from cmdiad_tpu_torch.runner import CMDIADRunner
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    tmp = _tail_tmp()
+    try:
+        # (a) MVTec 3D-AD preprocessing
+        root = os.path.join(tmp, "mvtec")
+        scans = []
+        for i in range(TAIL_SAMPLES):
+            pc, rgb, gt, obj, tuft = _scan_sample(rng, i)
+            scans.append((pc, obj, tuft))
+            for sub, arr in (("xyz", pc), ("rgb", rgb), ("gt", gt)):
+                d = os.path.join(root, "scan", "test", "good", sub)
+                os.makedirs(d, exist_ok=True)
+                path = os.path.join(d, f"{i:03d}." + ("tiff" if sub == "xyz" else "png"))
+                tiffio.imwrite(path, arr) if sub == "xyz" else png.imwrite(path, arr)
+        border = torch.from_numpy(scans[0][0])
+        got, best = plane.ransac(plane.border_points(border.to(dev)))
+        want, want_best = plane.ransac(plane.border_points(border))
+        sign = 1.0 if float(got[:3].cpu() @ want[:3]) > 0 else -1.0
+        plane_err = float(torch.max(torch.abs(sign * got.cpu() - want)))
+        print(f"phase 9 (a) RANSAC on the card vs the CPU, the same draw: best iteration "
+              f"{best} and {want_best}, planes within {plane_err:.2e} (limit 1e-9, float64 "
+              f"both); {len(plane.border_points(border))} border points")
+        assert best == want_best and plane_err < 1e-9, (best, want_best, plane_err)
+        row = check_dbscan(dev, scans[0][0])
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        n, seconds = cli.main(["preprocess", "-d", root, "-n", "6", "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = kernels.LAUNCHES["dbscan"]
+        assert n == TAIL_SAMPLES and launches == TAIL_SAMPLES, (n, launches)
+        for i, (pc, obj, tuft) in enumerate(scans):
+            out = tiffio.imread(os.path.join(root, "scan", "test", "good", "xyz", f"{i:03d}.tiff"))
+            valid = np.all(out != 0, axis=-1)
+            assert out.shape == pc.shape, out.shape
+            assert valid[obj].mean() > 0.9 and not valid[tuft].any(), i
+            assert valid[~obj].mean() < 0.01, i
+        print(f"phase 9 (a) cli preprocess --device cuda: {n} scans, launches {launches} "
+              f"dbscan; ms a sample (thread sums / {n}): ransac "
+              f"{seconds['ransac_s'] / n * 1e3:.1f}, dbscan {seconds['dbscan_s'] / n * 1e3:.1f}, "
+              f"io {seconds['io_s'] / n * 1e3:.1f}; wall {seconds['wall_s'] / n * 1e3:.1f} ms "
+              f"a sample over 6 threads; objects kept, tufts and planes gone; {card}")
+
+        # (b) Eyecandies
+        eye = os.path.join(tmp, "eye")
+        _eyecandies_tree(rng, eye)
+        t0 = time.perf_counter()
+        cli.main(["preprocess-eyecandies", "--dataset_path", eye, "--target_dir",
+                  os.path.join(tmp, "eye_card"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) / 4 * 1e3
+        t0 = time.perf_counter()
+        eyecandies.convert_dataset(eye, os.path.join(tmp, "eye_cpu"), device="cpu")
+        cpu_ms = (time.perf_counter() - t0) / 4 * 1e3
+        worst, files = 0, 0
+        for dirpath, _, names in os.walk(os.path.join(tmp, "eye_cpu")):
+            for name in names:
+                a = os.path.join(dirpath, name)
+                b = a.replace("eye_cpu", "eye_card")
+                if name.endswith(".tiff"):
+                    worst = max(worst, _ulps(tiffio.imread(b), tiffio.imread(a)))
+                else:
+                    assert np.array_equal(png.imread(a), png.imread(b)), name
+                files += 1
+        assert files == 10 and worst <= 2, (files, worst)   # 4 xyz, 4 rgb, 2 gt
+        print(f"phase 9 (b) cli preprocess-eyecandies --device cuda (512², 4 samples): "
+              f"{card_ms:.1f} ms a sample on the card, {cpu_ms:.1f} on the CPU; clouds within "
+              f"{worst} float32 ulps of the CPU's (limit 2), rgb and gt equal; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) + (d): the default path with the quantized blur and the 'jax' fitter
+    blurs, fits = [], []
+    q_blur, fit = scoring.quantized_knn_gaussian_blur, ocsvm.SGDOneClassSVM.fit
+
+    def record_blur(s_map, radius=4.0):
+        out = q_blur(s_map, radius)
+        blurs.append((s_map.detach().cpu(), out.detach().cpu()))
+        return out
+
+    def record_fit(self, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(self, x)
+        torch.cuda.synchronize()
+        fits.append((np.array(x), self, time.perf_counter() - t0))
+        return self
+
+    cfg = Config(batch_size=8, seed=SEED, quantized_blur=True, ocsvm_backend="jax",
+                 ocsvm_maxiter=TAIL_OCSVM_EPOCHS)
+    train, test = samples
+    with mock.patch.object(scoring, "quantized_knn_gaussian_blur", record_blur), \
+            mock.patch.object(ocsvm.SGDOneClassSVM, "fit", record_fit):
+        runner = CMDIADRunner(cfg, device=dev)
+        kernels.reset_launches()
+        runner.fit("synthetic", train)
+        metrics = runner.evaluate("synthetic", test)
+        torch.cuda.synchronize()
+    path_launches = dict(kernels.LAUNCHES)
+    for k in PATHS["default"][1]:
+        assert path_launches[k] > 0, (k, path_launches)
+    for k, v in metrics.items():
+        assert np.isfinite(v) and 0.0 <= v <= 1.0, (k, v)
+    assert blurs and all(torch.equal(blur.quantized_knn_gaussian_blur(s), out)
+                         for s, out in blurs), "quantized blur: card and CPU differ"
+    print(f"phase 9 (c) default path with quantized_blur=True: {len(blurs)} blurred batches "
+          f"({sum(s.shape[0] for s, _ in blurs)} maps), every map bit-equal to the CPU's blur of "
+          f"the same score map; launches {path_launches}; metrics {metrics}")
+    assert len(fits) == 2
+    for (x, fuser, card_s), name in zip(fits, ("detect", "seg")):
+        assert fuser.backend == "jax"
+        t0 = time.perf_counter()
+        w, rho = ocsvm._fit_jax(x, cfg.ocsvm_nu, TAIL_OCSVM_EPOCHS, 42, "cpu")
+        cpu_s = time.perf_counter() - t0
+        gap = max(float(np.max(np.abs(fuser.coef_.ravel() - w)) / np.max(np.abs(w))),
+                  abs(float(fuser.offset_[0]) - rho) / abs(rho))
+        t0 = time.perf_counter()
+        numpy_fit = ocsvm.SGDOneClassSVM(nu=cfg.ocsvm_nu, max_iter=1000, random_state=42,
+                                         backend="sklearn")
+        fit(numpy_fit, x)
+        numpy_s = time.perf_counter() - t0
+        print(f"phase 9 (d) {name} fuser, 'jax' fitter, {x.shape[0]} x {x.shape[1]} rows, "
+              f"{TAIL_OCSVM_EPOCHS} epochs: card {card_s:.2f} s, CPU {cpu_s:.2f} s, within "
+              f"{gap:.2e} relative of each other (limit 1e-6); the numpy 'sklearn' fitter "
+              f"{numpy_s:.2f} s ({numpy_fit.n_iter_} epochs, its stopping rule); {card}")
+        assert gap < 1e-6, (name, gap)
+        if full_ocsvm and name == "seg":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ocsvm._fit_jax(x, cfg.ocsvm_nu, 1000, 42, dev)
+            torch.cuda.synchronize()
+            print(f"phase 9 (d) seg fuser, 'jax' fitter, all 1000 epochs on the card: "
+                  f"{time.perf_counter() - t0:.1f} s; {card}")
+
+    # (e) heatmaps of phase 4's saved maps
+    with tempfile.TemporaryDirectory() as out:
+        n_maps = sum(len([f for f in fs if f.endswith(".npz")]) for _, _, fs in os.walk(seg_dir))
+        t0 = time.perf_counter()
+        assert cli.main(["heatmap", "--seg_dir", seg_dir, "--out_dir", out]) == n_maps > 0
+        pngs = sorted(os.listdir(out))
+        img = png.imread(os.path.join(out, pngs[0]))
+        assert len(pngs) == n_maps and img.shape == (224, 2 * 224 + 8, 3), (len(pngs), img.shape)
+        print(f"phase 9 (e) cli heatmap: {n_maps} maps of phase 4 in "
+              f"{time.perf_counter() - t0:.1f} s; {pngs[0]} decodes to {img.shape}")
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return row, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one evaluation pass of each path and "
                          "MTFI preset and one training step of each train "
                          "method (torch.profiler) and write the tables to DIR")
+    ap.add_argument("--full_ocsvm", action="store_true",
+                    help="also time the seg fuser's 'jax' fit over all 1000 epochs "
+                         "in phase 9 (about four minutes)")
     args = ap.parse_args()
 
     import torch
@@ -1778,16 +2112,17 @@ def main() -> int:
         delta = abs(metrics["throughput"][k] - metrics["default"][k])
         print(f"throughput vs default {k}: |delta| {delta:.4f} (limit {limit})")
         assert delta <= limit, (k, delta, limit)
-    phase_detect(card, eval_ms["default"])
+    seg_dir = phase_detect(card, eval_ms["default"], work.name)
     phase_mtfi(dev, samples, card, args.profile)
     phase_backbones(dev, card)
     phase_train(dev, samples, card, args.profile)
     phase_multi(dev, samples, card, states, preds, metrics, eval_ms)
+    res["dbscan"], dbscan_launches = phase_tail(dev, samples, card, seg_dir, args.full_ocsvm)
     work.cleanup()
 
     rows = []
     for name, key, src, replaces in KERNEL_ROWS:
-        n = probe_launches if key == "int8_dot" else next(
+        n = probe_launches if key == "int8_dot" else dbscan_launches if key == "dbscan" else next(
             launches[p][key] for p in PATHS if key in PATHS[p][1])
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n, **res[key]})

@@ -3,6 +3,9 @@
   python -m cmdiad_tpu_torch.cli detect [--<Config field> value ...] [--device cuda|cpu]
   python -m cmdiad_tpu_torch.cli train [--<TrainConfig field> value ...] [--device cuda|cpu]
   python -m cmdiad_tpu_torch.cli convert-ckpt --src net.pth --dst net.npz --kind KIND
+  python -m cmdiad_tpu_torch.cli preprocess --dataset_path DIR [--num_process 6] [--device cuda|cpu]
+  python -m cmdiad_tpu_torch.cli preprocess-eyecandies --dataset_path SRC --target_dir DST [--device cuda|cpu]
+  python -m cmdiad_tpu_torch.cli heatmap --seg_dir DIR --out_dir DIR [--limit N]
 
 ``detect`` fits and evaluates every class of the dataset at
 ``--dataset_path`` (or the one ``--class_name``) with the configured
@@ -22,6 +25,15 @@ epoch's ``final_train_loss`` and ``final_test_loss``, or ``{"status":
 
 ``convert-ckpt`` writes a reference torch checkpoint in the JAX package's
 npz layout, the same file as the JAX CLI's ``convert-ckpt``.
+
+``preprocess`` rewrites an MVTec 3D-AD tree in place (plane removal,
+padding, largest-cluster cleaning; ``preprocess.mvtec``) and prints the
+JAX CLI's ``preprocessed N tiffs`` and a line of summed seconds;
+``preprocess-eyecandies`` converts an Eyecandies tree to that layout
+(``preprocess.eyecandies``); both run their device work on ``--device``
+(default ``cuda``).  ``heatmap`` renders the ``.npz`` maps that
+``--save_seg_results`` writes (``utils.heatmap``, host code) and prints
+``N heatmaps rendered``.
 
 ``detect`` and ``train`` run on several devices under torchrun, one
 process a rank (``--device cuda``: NCCL, rank r on ``cuda:{LOCAL_RANK}``;
@@ -243,26 +255,66 @@ def cmd_convert_ckpt(args) -> None:
     print(f"converted {args.src} -> {args.dst}")
 
 
+def cmd_preprocess(args):
+    """-> (tiffs preprocessed, summed seconds by phase)."""
+    from cmdiad_tpu_torch.preprocess.mvtec import preprocess_dataset
+    n, seconds = preprocess_dataset(args.dataset_path, num_workers=args.num_process,
+                                    device=args.device)
+    print(f"preprocessed {n} tiffs")
+    print("seconds summed over the tiffs: " + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()))
+    return n, seconds
+
+
+def cmd_preprocess_eyecandies(args) -> None:
+    from cmdiad_tpu_torch.preprocess.eyecandies import convert_dataset
+    convert_dataset(args.dataset_path, args.target_dir, device=args.device)
+
+
+def cmd_heatmap(args) -> int:
+    from cmdiad_tpu_torch.utils.heatmap import render_run
+    n = render_run(args.seg_dir, args.out_dir, args.limit)
+    print(n, "heatmaps rendered")
+    return n
+
+
+def _add_device_arg(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("cmdiad_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("detect", help="memory-bank detection / evaluation")
     _add_config_args(p)
-    p.add_argument("--device", default="cuda",
-                   help="'cuda' (default; raises without a card) or 'cpu'")
+    _add_device_arg(p)
     p.add_argument("--trace_dir", default="",
                    help="write a torch.profiler trace of the run to DIR/trace.json")
     p.set_defaults(fn=cmd_detect)
     p = sub.add_parser("train", help="MTFI distillation training")
     _add_config_args(p, TrainConfig)
-    p.add_argument("--device", default="cuda",
-                   help="'cuda' (default; raises without a card) or 'cpu'")
+    _add_device_arg(p)
     p.set_defaults(fn=cmd_train)
     p = sub.add_parser("convert-ckpt", help="torch .pth -> the JAX package's .npz params")
     p.add_argument("--src", required=True)
     p.add_argument("--dst", required=True)
     p.add_argument("--kind", required=True, choices=list(_CONVERTERS))
     p.set_defaults(fn=cmd_convert_ckpt)
+    p = sub.add_parser("preprocess", help="MVTec 3D-AD in-place preprocessing")
+    p.add_argument("--dataset_path", "-d", required=True)
+    p.add_argument("--num_process", "-n", type=int, default=6)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_preprocess)
+    p = sub.add_parser("preprocess-eyecandies")
+    p.add_argument("--dataset_path", required=True)
+    p.add_argument("--target_dir", required=True)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_preprocess_eyecandies)
+    p = sub.add_parser("heatmap", help="render saved segmentation maps")
+    p.add_argument("--seg_dir", required=True)
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--limit", type=int, default=0)
+    p.set_defaults(fn=cmd_heatmap)
     args = parser.parse_args(argv)
     try:
         return args.fn(args)

@@ -5,11 +5,10 @@ A copy of ``cmdiad_tpu.config.Config``: the same fields, defaults and
 same in the other (``methods.base.state_fingerprint``).  Fields that only
 shape the JAX package's TPU execution (meshes, fused programs, Pallas
 switches) are kept for that reason.  ``mesh_shape`` and ``shard_bank`` run
-on a ``torch.distributed`` process group (``parallel``); the port refuses
-what it cannot honour yet (``quantized_blur``, ``ocsvm_backend='jax'``
-raise ``NotImplementedError`` through ``methods.base.refuse_unported`` when
-a method is built) and ignores the fields that shape only the JAX
-package's speed (``use_pallas``, ``fused_eval``, ``cache_train_features``).
+on a ``torch.distributed`` process group (``parallel``),
+``quantized_blur`` selects the bit-exact uint8 blur (``ops.blur``) and
+``ocsvm_backend`` the fusers' fitter (``fusion.ocsvm``); the port ignores
+the fields that shape only the JAX package's speed (``use_pallas``, ``fused_eval``, ``cache_train_features``).
 ``TrainConfig`` and ``TRAIN_METHODS`` are the JAX package's MTFI training
 configuration, copied the same way.
 """

@@ -17,6 +17,10 @@ gives, for ``mode`` "RGB" or "L":
   * Adam7 interlacing and 16-bit samples raise ``NotImplementedError``
     naming the file.
 
+``imread_grey16`` reads a 16-bit greyscale PNG (Eyecandies' depth maps) as
+the (H, W) uint16 array ``imageio.v3.imread`` gives, and refuses any other
+kind; ``imwrite_grey16`` writes one (filter None on every row).
+
 ``encode``/``imwrite`` write 8-bit L or RGB with one filter a row chosen
 by the least sum of absolute (signed) filtered bytes, the usual adaptive
 heuristic, so written files can carry all five filter types.
@@ -70,8 +74,9 @@ def _chunks(data: bytes, name: str) -> Iterator[Tuple[bytes, bytes]]:
     raise ValueError(f"{name}: no IEND chunk")
 
 
-def _parse(data: bytes, name: str):
-    """-> (header dict, palette (n, 3) uint8 or None, inflated IDAT bytes)."""
+def _parse(data: bytes, name: str, grey16: bool = False):
+    """-> (header dict, palette (n, 3) uint8 or None, inflated IDAT bytes).
+    ``grey16`` accepts 16-bit greyscale, and only that."""
     header, palette, idat = None, None, []
     for ctype, body in _chunks(data, name):
         if ctype == b"IHDR":
@@ -89,6 +94,11 @@ def _parse(data: bytes, name: str):
     color, depth = header["color"], header["depth"]
     if header["interlace"]:
         raise NotImplementedError(f"{name}: Adam7-interlaced PNG is not supported")
+    if grey16:
+        if (color, depth) != (0, 16):
+            raise ValueError(f"{name}: colour type {color} at {depth} bits is not "
+                             "16-bit greyscale")
+        return header, palette, zlib.decompress(b"".join(idat))
     if depth == 16:
         raise NotImplementedError(f"{name}: 16-bit PNG is not supported")
     if color not in _CHANNELS or depth not in (1, 2, 4, 8) or (
@@ -216,6 +226,21 @@ def decode(data: bytes, mode: str = "RGB", name: str = "<bytes>") -> np.ndarray:
     return np.repeat(grey[..., None], 3, axis=2) if mode == "RGB" else grey
 
 
+def decode_grey16(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """16-bit greyscale PNG bytes -> (H, W) uint16 (big-endian samples)."""
+    header, _, raw = _parse(data, name, grey16=True)
+    rows = _filtered_rows(header, raw, name)
+    with _SWEEP_LOCK:
+        unfiltered = _unfilter(rows[:, 1:], rows[:, 0], 2)
+    return unfiltered.view(">u2").astype(np.uint16)
+
+
+def imread_grey16(path: Union[str, Path]) -> np.ndarray:
+    """Read a 16-bit greyscale PNG file as (H, W) uint16."""
+    with open(path, "rb") as fh:
+        return decode_grey16(fh.read(), name=str(path))
+
+
 def row_filters(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """The filter type of every row of a PNG, in order."""
     header, _, raw = _parse(data, name)
@@ -256,6 +281,20 @@ def encode(arr: np.ndarray) -> bytes:
     return (SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+def imwrite_grey16(path: Union[str, Path], arr: np.ndarray) -> None:
+    """Write (H, W) uint16 as a 16-bit greyscale PNG file."""
+    if arr.dtype != np.uint16 or arr.ndim != 2:
+        raise ValueError(f"imwrite_grey16 takes (H, W) uint16, not {arr.dtype} {arr.shape}")
+    h, w = arr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           arr.astype(">u2").view(np.uint8).reshape(h, 2 * w)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)
+    with open(path, "wb") as fh:
+        fh.write(SIGNATURE + _chunk(b"IHDR", ihdr)
+                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                 + _chunk(b"IEND", b""))
 
 
 def imwrite(path: Union[str, Path], arr: np.ndarray) -> None:

@@ -32,10 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_L, _F = ctypes.c_longlong, ctypes.c_float
+_L, _F, _D = ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 # kernel -> (C entry point, argument types before the trailing stream,
-#            extra nvcc flags).  FPS and the interpolation keep their
-#            distance arithmetic free of FMA contraction so that their
+#            extra nvcc flags).  FPS, the interpolation and DBSCAN keep
+#            their distance arithmetic free of FMA contraction so that their
 #            selections match the plain versions exactly (the int8 bank-min
 #            rounds each operation with intrinsics instead).
 _KERNELS = {
@@ -49,6 +49,8 @@ _KERNELS = {
     "flash_attn": ("flash_attn_launch",
                    (_P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _I), ()),
     "int8_dot": ("int8_dot_launch", (_P, _P, _P, _I, _I, _I, _I), ()),
+    "dbscan": ("dbscan_launch", (_P, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P),
+               ("--fmad=false",)),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNELS}

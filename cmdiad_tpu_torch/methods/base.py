@@ -79,17 +79,6 @@ _FINGERPRINT_FIELDS = (
 _SAMPLE_KEYS = ("rgb", "organized_pc", "depth3", "points_compact")
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError for the config fields that change what a
-    JAX run computes and that the port does not honour yet."""
-    if cfg.quantized_blur:
-        raise NotImplementedError("quantized_blur is not ported yet")
-    if cfg.ocsvm_backend != "sklearn":
-        raise NotImplementedError(
-            f"ocsvm_backend={cfg.ocsvm_backend!r}: the port fits the fusers "
-            "with its numpy SGD, the 'sklearn' semantics, only")
-
-
 def method_mesh(cfg: Config, device) -> Optional[Mesh]:
     """The mesh a method runs on: ``cfg.mesh_shape`` over the process group
     (raises without one), else every rank of an initialised group when
@@ -115,7 +104,6 @@ class MemoryBankMethod:
 
     def __init__(self, cfg: Config, backbone, fusion=None,
                  fix_cross_stats: bool = False):
-        refuse_unported(cfg)
         self.cfg = cfg
         self.backbone = backbone
         self.device = backbone.device
@@ -144,12 +132,10 @@ class MemoryBankMethod:
         # _bank_kernel_operands), made once per fitted or loaded bank
         self._bank_aux: Dict[str, Dict[str, torch.Tensor]] = {}
 
-        self.detect_fuser = SGDOneClassSVM(nu=cfg.ocsvm_nu,
-                                           max_iter=cfg.ocsvm_maxiter,
-                                           random_state=42)
-        self.seg_fuser = SGDOneClassSVM(nu=cfg.ocsvm_nu,
-                                        max_iter=cfg.ocsvm_maxiter,
-                                        random_state=42)
+        self.detect_fuser, self.seg_fuser = (
+            SGDOneClassSVM(nu=cfg.ocsvm_nu, max_iter=cfg.ocsvm_maxiter, random_state=42,
+                           backend=cfg.ocsvm_backend, device=self.device)
+            for _ in range(2))
         self.s_lib: List[Tuple[torch.Tensor, int]] = []   # ((B, k), n valid)
         self.s_map_lib: List[torch.Tensor] = []           # (B, k, gt, gt)
         self.reset_predictions()
@@ -296,7 +282,8 @@ class MemoryBankMethod:
         kw = dict(out_size=self.cfg.gt_size, metric=self.cfg.dist_method_s,
                   n_reweight=self.cfg.n_reweight, n_valid=self.bank_sizes[bank_name],
                   nn_table=self.nn_tables[bank_name],
-                  bank_operands=self._bank_kernel_operands(bank_name))
+                  bank_operands=self._bank_kernel_operands(bank_name),
+                  quantized_blur=self.cfg.quantized_blur)
         if self.bank_mesh is not None:
             return sharded_score_batch(self.bank_mesh, normed, bank, (side, side), **kw)
         if self.dp_mesh is not None:

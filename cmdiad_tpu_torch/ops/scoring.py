@@ -21,7 +21,7 @@ import math
 import torch
 
 from cmdiad_tpu_torch.ops.bank_min import bank_min_bf16, bank_min_int8
-from cmdiad_tpu_torch.ops.blur import knn_gaussian_blur
+from cmdiad_tpu_torch.ops.blur import knn_gaussian_blur, quantized_knn_gaussian_blur
 from cmdiad_tpu_torch.ops.pooling import bilinear_resize
 
 # Value written into bank padding rows; far from any normalised feature.
@@ -101,9 +101,11 @@ def bank_nn_table(bank: torch.Tensor, k: int = 3, n_valid=None,
 def patchcore_finish(patch, bank, min_val, min_idx, feat_hw,
                      out_size: int = 224, metric: str = "l2",
                      n_reweight: int = 3, blur_radius: float = 4.0,
-                     n_valid=None, nn_table=None, bank_rows=None):
+                     n_valid=None, nn_table=None, bank_rows=None,
+                     quantized_blur: bool = False):
     """Everything after the bank min pass, for a batch: eq. 7 reweight,
-    bilinear upsample, blur.
+    bilinear upsample, blur (the reference's uint8 blur, bit for bit, with
+    ``quantized_blur``).
 
     patch (B, Np, D), min_val/min_idx (B, Np) -> (s (B,), s_map (B, out, out)).
     ``bank_rows(idx)`` returns the bank's rows at ``idx`` where the caller
@@ -138,13 +140,15 @@ def patchcore_finish(patch, bank, min_val, min_idx, feat_hw,
 
     h, w_ = feat_hw
     s_map = bilinear_resize(min_val.reshape(b, h, w_, 1), (out_size, out_size))[..., 0]
-    return s, knn_gaussian_blur(s_map, blur_radius)
+    blur = quantized_knn_gaussian_blur if quantized_blur else knn_gaussian_blur
+    return s, blur(s_map, blur_radius)
 
 
 def patchcore_score(patch: torch.Tensor, bank: torch.Tensor, feat_hw,
                     out_size: int = 224, metric: str = "l2",
                     n_reweight: int = 3, blur_radius: float = 4.0,
-                    n_valid=None, nn_table=None, bank_operands=None):
+                    n_valid=None, nn_table=None, bank_operands=None,
+                    quantized_blur: bool = False):
     """Image scores and segmentation maps of a batch against one bank.
 
     patch (B, Np, D) normalised test patches, bank (Nb, D), feat_hw with
@@ -170,7 +174,7 @@ def patchcore_score(patch: torch.Tensor, bank: torch.Tensor, feat_hw,
                             min_idx.reshape(b, n), feat_hw, out_size=out_size,
                             metric=metric, n_reweight=n_reweight,
                             blur_radius=blur_radius, n_valid=n_valid,
-                            nn_table=nn_table)
+                            nn_table=nn_table, quantized_blur=quantized_blur)
 
 
 def pad_bank(bank: torch.Tensor, bucket: int = 8192) -> torch.Tensor:

@@ -84,7 +84,7 @@ def owned_rows(mesh: Mesh, bank_local: torch.Tensor, idx: torch.Tensor) -> torch
 def sharded_score_batch(mesh: Mesh, patches: torch.Tensor, bank_local: torch.Tensor,
                         feat_hw, nn_table: torch.Tensor, out_size: int = 224,
                         metric: str = "l2", n_reweight: int = 3, blur_radius: float = 4.0,
-                        n_valid=None, bank_operands=None):
+                        n_valid=None, bank_operands=None, quantized_blur: bool = False):
     """Image scores and maps of a batch ``patches`` (B, Np, D), the same on
     every rank, against a row-sharded bank (``bank_local`` this rank's
     block, ``nn_table`` the whole bank's)."""
@@ -94,4 +94,5 @@ def sharded_score_batch(mesh: Mesh, patches: torch.Tensor, bank_local: torch.Ten
     return patchcore_finish(patches, None, v.reshape(b, n), idx.reshape(b, n), feat_hw,
                             out_size=out_size, metric=metric, n_reweight=n_reweight,
                             blur_radius=blur_radius, n_valid=n_valid, nn_table=nn_table,
-                            bank_rows=lambda i: owned_rows(mesh, bank_local, i))
+                            bank_rows=lambda i: owned_rows(mesh, bank_local, i),
+                            quantized_blur=quantized_blur)

@@ -626,3 +626,118 @@ def test_sharded_bank_min_on_the_card(dev, rng, backend, world):
             exact = np.sqrt(((q.astype(np.float64) - bank[i]) ** 2).sum(1))
             np.testing.assert_allclose(v, exact, rtol=1e-5, atol=1e-5)
             assert np.all(v <= want_v + 1e-6)
+
+
+# --------------------------------------------------------------- the tail --
+
+def _scan(rng, size=200, pitch=5e-4):
+    """An organized scan: a tilted background plane, a raised disc and a
+    separate tuft, a few invalid pixels (float32 (size, size, 3))."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+    x, y = (xx - size / 2) * pitch, (yy - size / 2) * pitch
+    z = 0.5 + 0.05 * x + 0.03 * y
+    r2 = (xx - size / 2) ** 2 + (yy - size / 2) ** 2
+    z -= np.where(r2 < (size / 3) ** 2, 0.01, 0.0)
+    z -= np.where((yy - size / 6) ** 2 + (xx - 5 * size / 6) ** 2 < 16, 0.02, 0.0)
+    pc = np.stack([x, y, z], -1) + rng.normal(0, 5e-5, (size, size, 3))
+    pc[rng.random((size, size)) < 0.02] = 0
+    return pc.astype(np.float32)
+
+
+@pytest.mark.parametrize("scene", ["scan", "blobs", "noise", "shared", "duplicates"])
+def test_dbscan_kernel_matches_plain(dev, rng, scene):
+    """The kernel's roots and neighbour counts equal the plain version's:
+    the same float64 eps test, the smallest core index as the root."""
+    from cmdiad_tpu_torch.preprocess import cluster
+    eps, min_points = 0.006, 30
+    if scene == "scan":
+        pts = _scan(rng).reshape(-1, 3)
+        pts = pts[(pts != 0).all(1)]
+        eps = 0.003
+    elif scene == "blobs":
+        pts = np.concatenate([rng.normal(c, 0.003, (400, 3)) for c in (0.0, 0.02, 0.04)]
+                             + [rng.uniform(-0.02, 0.06, (300, 3))])
+        min_points = 12
+    elif scene == "noise":
+        pts = rng.uniform(0, 1, (2000, 3))
+    elif scene == "shared":
+        pts = np.concatenate([rng.normal(0, 5e-4, (40, 3)) + [0.005, 0, 0],
+                              [[0.0, 0.0, 0.0015]],
+                              rng.normal(0, 5e-4, (40, 3)) + [-0.005, 0, 0]])
+        eps, min_points = 0.0045, 20
+    else:
+        base = rng.normal(0, 0.004, (500, 3))
+        pts = np.concatenate([base, base[::-1], base[:50]])     # exact duplicates
+    p = torch.from_numpy(np.ascontiguousarray(pts, np.float32))
+    before = kernels.LAUNCHES["dbscan"]
+    root, count = cluster._roots_cuda(p.to(dev), eps, min_points)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dbscan"] == before + 1
+    want_root, want_count = cluster._roots_plain(p.to(dev), eps, min_points)
+    assert torch.equal(count, want_count)
+    assert torch.equal(root, want_root)
+    assert torch.equal(cluster.dbscan_labels(p.to(dev), eps, min_points),
+                       cluster._rank(want_root))
+
+
+def test_preprocess_sample_on_the_card_launches_dbscan(dev, rng, tmp_path):
+    """No fallback: a sample preprocessed on the card launches the DBSCAN
+    kernel once, and gives the CPU's arrays."""
+    from cmdiad_tpu_torch.data import png, tiffio
+    from cmdiad_tpu_torch.preprocess import mvtec
+    pc = _scan(rng, size=100, pitch=1e-3)
+    rgb = rng.integers(0, 256, (100, 100, 3)).astype(np.uint8)
+    paths = {}
+    for tag in ("card", "cpu"):
+        for sub in ("xyz", "rgb", "gt"):
+            (tmp_path / tag / sub).mkdir(parents=True)
+        tiffio.imwrite(str(tmp_path / tag / "xyz" / "s.tiff"), pc)
+        png.imwrite(tmp_path / tag / "rgb" / "s.png", rgb)
+        png.imwrite(tmp_path / tag / "gt" / "s.png", (rgb[..., 0] > 128).astype(np.uint8) * 255)
+        paths[tag] = str(tmp_path / tag / "xyz" / "s.tiff")
+    kernels.reset_launches()
+    card = mvtec.preprocess_sample(paths["card"], device=dev)
+    assert kernels.LAUNCHES["dbscan"] == 1
+    cpu = mvtec.preprocess_sample(paths["cpu"], device="cpu")
+    assert card["n_clusters"] == cpu["n_clusters"] == 2
+    for k in ("pc", "rgb", "gt"):
+        assert np.array_equal(card[k], cpu[k]), k
+
+
+def test_quantized_blur_on_the_card_is_bit_equal(dev, rng):
+    from cmdiad_tpu_torch.ops import blur
+    maps = np.abs(rng.normal(size=(8, 224, 224))).astype(np.float32)
+    maps[1] = 0.0
+    t = torch.from_numpy(maps)
+    assert torch.equal(blur.quantized_knn_gaussian_blur(t.to(dev)).cpu(),
+                       blur.quantized_knn_gaussian_blur(t))
+
+
+def test_jax_fitter_on_the_card_matches_the_cpu(dev, rng):
+    """The same float64 recurrence on the two devices: equal up to the
+    order of the cumulative sums."""
+    from cmdiad_tpu_torch.fusion import ocsvm
+    x = np.abs(rng.normal(size=(20000, 2))) * [0.01, 0.02]
+    w, rho = ocsvm._fit_jax(x, 0.5, 3, 42, dev)
+    w_cpu, rho_cpu = ocsvm._fit_jax(x, 0.5, 3, 42, "cpu")
+    np.testing.assert_allclose(w, w_cpu, rtol=1e-6)
+    assert abs(rho - rho_cpu) <= 1e-6 * abs(rho_cpu)
+
+
+def test_eyecandies_projection_on_the_card_equals_the_cpu(dev, rng, tmp_path):
+    """Elementwise float64 on both devices: the same bits."""
+    from cmdiad_tpu_torch.data import png
+    from cmdiad_tpu_torch.preprocess import eyecandies
+    d = tmp_path / "s"
+    d.mkdir()
+    depth = (rng.uniform(0.3, 0.9, (512, 512)) * 65535).astype(np.uint16)
+    png.imwrite_grey16(d / "000_depth.png", depth)
+    (d / "000_info_depth.yaml").write_text("normalization:\n  max: 1.5\n  min: 0.5\n")
+    np.savetxt(d / "000_pose.txt", np.eye(4))
+    out = {}
+    for device in (dev, "cpu"):
+        out[str(device)] = eyecandies.convert_sample(d, "000", tmp_path / f"{device}.tiff",
+                                                     device=device)
+    a, b = out.values()
+    assert a.shape == (512, 512, 3) and np.array_equal(a, b)
+    assert png.imread_grey16(d / "000_depth.png").dtype == np.uint16

@@ -310,14 +310,15 @@ def test_fitted_state_cache(cache_fit, backbones, how, tmp_path):
 
 
 @pytest.mark.parametrize("field", [dict(mesh_shape=(8,)), dict(shard_bank=True),
-                                   dict(ocsvm_backend="jax")])
+                                   dict(ocsvm_backend="libsvm")])
 def test_unhonoured_fields_raise(backbones, cache_fit, field):
-    """``ocsvm_backend='jax'`` is not ported; ``mesh_shape`` needs a process
-    group and, without one, names torchrun; ``shard_bank`` without one is
-    one shard, the whole bank, scoring exactly as the unsharded method (the
-    JAX package on one device)."""
+    """An unknown ``ocsvm_backend`` raises ``ValueError`` (the JAX
+    package's 'sklearn' and 'jax' are both ported); ``mesh_shape`` needs a
+    process group and, without one, names torchrun; ``shard_bank`` without
+    one is one shard, the whole bank, scoring exactly as the unsharded
+    method (the JAX package on one device)."""
     if "ocsvm_backend" in field:
-        with pytest.raises(NotImplementedError, match="ocsvm_backend"):
+        with pytest.raises(ValueError, match="ocsvm backend 'libsvm'"):
             build_method(Config(rgb_size=SIZE, **field), backbone=backbones[2])
     elif "mesh_shape" in field:
         with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 8"):

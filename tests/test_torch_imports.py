@@ -3,8 +3,10 @@
 * it imports neither JAX nor anything of the JAX package, nor Pillow or
   pandas (the card machine has neither), checked twice: statically over
   every module, and in a fresh interpreter;
-* its entry points (the trainer and ``cli train`` among them) default to
-  the card and refuse to run without one instead of moving to the CPU;
+* its entry points (the trainer, ``cli train``, ``cli preprocess`` and
+  ``cli preprocess-eyecandies`` among them) default to the card and refuse
+  to run without one instead of moving to the CPU (``cli heatmap`` is host
+  code);
 * its ``Config`` is the JAX package's field for field, so the fitted-state
   fingerprints agree.
 """
@@ -24,7 +26,8 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "cmdiad_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "cmdiad_tpu", "PIL", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cmdiad_tpu", "PIL", "pandas", "matplotlib", "yaml",
+             "cv2", "imageio")
 
 
 def _forbidden(module: str) -> bool:
@@ -127,7 +130,45 @@ def test_parallel_dry_run_loads_no_jax(tmp_path):
     assert "-- OK" in out.stdout
 
 
-@pytest.mark.parametrize("build", ["backbone", "runner", "device", "trainer", "cli_train"])
+def test_cli_tail_runs_without_jax(tmp_path):
+    """``cli preprocess``, ``preprocess-eyecandies`` and ``heatmap`` in a
+    fresh interpreter, on small trees written here, load no JAX module."""
+    from cmdiad_tpu_torch.data import png, tiffio
+    from test_misc_coverage import _build_synthetic_eyecandies
+    from test_preprocess import _scene
+    rng = np.random.default_rng(0)
+    pc, rgb, blob, _ = _scene(rng)
+    for sub in ("xyz", "rgb", "gt"):
+        (tmp_path / "mv" / sub).mkdir(parents=True)
+    tiffio.imwrite(str(tmp_path / "mv" / "xyz" / "s.tiff"), pc)
+    png.imwrite(tmp_path / "mv" / "rgb" / "s.png", rgb)
+    png.imwrite(tmp_path / "mv" / "gt" / "s.png", (blob * 255).astype(np.uint8))
+    _build_synthetic_eyecandies(rng, tmp_path / "eye", size=512, n_train=1, n_test=1)
+    (tmp_path / "seg" / "c").mkdir(parents=True)
+    np.savez_compressed(tmp_path / "seg" / "c" / "000.npz", s_map=rng.random((16, 16)),
+                        gt=np.zeros((16, 16), np.float32))
+    code = (
+        "import sys\n"
+        "from cmdiad_tpu_torch import cli\n"
+        f"cli.main(['preprocess', '-d', {str(tmp_path / 'mv')!r}, '-n', '2', '--device', 'cpu'])\n"
+        f"cli.main(['preprocess-eyecandies', '--dataset_path', {str(tmp_path / 'eye')!r},\n"
+        f"          '--target_dir', {str(tmp_path / 'eye_mv')!r}, '--device', 'cpu'])\n"
+        f"cli.main(['heatmap', '--seg_dir', {str(tmp_path / 'seg')!r},\n"
+        f"          '--out_dir', {str(tmp_path / 'maps')!r}])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'cmdiad_tpu', 'PIL', 'matplotlib', 'yaml', 'cv2', 'imageio')]\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "preprocessed 1 tiffs" in out.stdout and "1 heatmaps rendered" in out.stdout
+    assert len(list((tmp_path / "eye_mv").rglob("*.tiff"))) == 2
+    assert tiffio.imread(str(tmp_path / "mv" / "xyz" / "s.tiff")).shape == (200, 200, 3)
+
+
+@pytest.mark.parametrize("build", ["backbone", "runner", "device", "trainer", "cli_train",
+                                   "cli_preprocess", "cli_eyecandies"])
 def test_cuda_default_raises_without_a_card(build, monkeypatch):
     """No silent fallback: the default device is the card, and without one
     the entry points raise instead of running on the CPU."""
@@ -150,6 +191,13 @@ def test_cuda_default_raises_without_a_card(build, monkeypatch):
         elif build == "cli_train":
             from cmdiad_tpu_torch import cli
             cli.main(["train", "--data_path", "unused"])
+        elif build == "cli_preprocess":
+            from cmdiad_tpu_torch import cli
+            cli.main(["preprocess", "--dataset_path", "unused"])
+        elif build == "cli_eyecandies":
+            from cmdiad_tpu_torch import cli
+            cli.main(["preprocess-eyecandies", "--dataset_path", "unused",
+                      "--target_dir", "unused"])
         else:
             resolve_device()
 
