@@ -46,7 +46,11 @@ Phases:
      point of the hallucinated 224² cloud for FtoI's rgb main); the fusion
      net agrees with a CPU copy of it, and the card's predictions with the
      CPU's on the card's bank rows and hallucinated features;
-  6. DINOv2 ViT-B/14 at 518² and Point-BERT through the fused attention
+  6. the throughput configuration's bfloat16 ViT-B/8 and Point-MAE at full
+     width (two blocks each) held to the JAX package's outputs saved in
+     ``tests/data/jax_bf16_backbones.npz`` (``tests/bf16_golden.py``
+     rebuilds the weights and inputs from numpy's seeded stream); DINOv2
+     ViT-B/14 at 518² and Point-BERT through the fused attention
      kernel against the same modules on the CPU, in float32; a backbone
      and a fusion net written to ``.pth`` files load back through
      ``rgb_ckpt_path``, ``xyz_ckpt_path`` and ``fusion_module_path`` to the
@@ -89,9 +93,11 @@ Phases:
      card against the CPU; (c) the default path with ``quantized_blur``,
      every blurred map bit-equal to the CPU's blur of the same score map;
      (d) its fusers fitted with ``ocsvm_backend='jax'`` on the card
-     (``TAIL_OCSVM_EPOCHS`` epochs; ``--full_ocsvm`` also times all 1000)
-     against the CPU fit, beside the numpy fitter's time; (e) ``cli
-     heatmap`` over the maps phase 4 saved.
+     (``TAIL_OCSVM_EPOCHS`` epochs through ``csrc/ocsvm_sgd.cu``;
+     ``--full_ocsvm`` also times all 1000), the detect fuser's fit and
+     the seg fuser's first epoch bit-equal to the kernel's plain version,
+     beside the numpy 'sklearn' fitter's time; (e) ``cli heatmap`` over
+     the maps phase 4 saved.
 
 Prints the card, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -558,9 +564,12 @@ KERNEL_ROWS = (
      "cmdiad_tpu/ops/flash_attn.py:59"),
     ("int8_dot", "int8_dot", "cmdiad_tpu_torch/csrc/int8_dot.cu",
      "benchmarks/probe_int8_dot.py:19"),
-    # replaces no TPU kernel: the JAX package's host routine
+    # replace no TPU kernel: the JAX package's host routine, and its
+    # XLA-compiled loop
     ("dbscan", "dbscan", "cmdiad_tpu_torch/csrc/dbscan.cu",
      "cmdiad_tpu/native/cmdiad_native.cc:268 dbscan (host C++)"),
+    ("ocsvm_sgd", "ocsvm_sgd", "cmdiad_tpu_torch/csrc/ocsvm_sgd.cu",
+     "cmdiad_tpu/fusion/ocsvm.py:78 _fit_jax (XLA scan)"),
 )
 
 # the kernels each detection path must launch; the JSON row of a kernel
@@ -1138,11 +1147,42 @@ def phase_mtfi(dev, samples, card: str, profile=None):
 BACKBONE_TOL = 1e-4
 
 
+def check_bf16_golden(dev, card: str) -> None:
+    """The throughput configuration's bfloat16 backbones at full width
+    (ViT-B/8 at 224², Point-MAE over 1024 groups of 128, two blocks each;
+    attention through the fused kernel) on the card, held to the JAX
+    package's outputs saved in ``tests/data/jax_bf16_backbones.npz`` for
+    the same weights and inputs, rebuilt here from their numpy recipe
+    (``tests/bf16_golden.py``), within its stated bfloat16 tolerances."""
+    import torch
+    from cmdiad_tpu_torch import kernels
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import bf16_golden
+
+    tb, _ = bf16_golden.port_backbone(dev)
+    images, pc = bf16_golden.inputs()
+    kernels.reset_launches()
+    out = tb.extract(images=torch.from_numpy(images), organized_pc=torch.from_numpy(pc))
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["flash_attn"]
+    assert launches == 2 * bf16_golden.DEPTH, launches
+    got = bf16_golden.summarize({k: v.cpu().numpy() for k, v in out.items()})
+    dev_ = bf16_golden.check(got, bf16_golden.load())
+    print(f"bf16 backbones at full width (ViT-B/8 224², 785 tokens x 12 heads; Point-MAE "
+          f"1024 groups, 1024 tokens x 6 heads; {bf16_golden.DEPTH} blocks each; "
+          f"{launches} fused-attention launches) against the saved JAX outputs, as shares "
+          f"of the largest value (limits: rows {bf16_golden.ROW_TOL}, means and norms "
+          f"{bf16_golden.SUMMARY_TOL}): "
+          + ", ".join(f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v} differ"
+                      for k, v in dev_.items()) + f"; {card}")
+
+
 def phase_backbones(dev, card: str):
-    """DINOv2 ViT-B/14 at 518² and Point-BERT, both through the fused
-    attention kernel, on the card and on the CPU; then a backbone and a
-    fusion net written to ``.pth`` files and loaded back through the
-    config's checkpoint paths."""
+    """The bfloat16 backbones against the saved JAX outputs; DINOv2
+    ViT-B/14 at 518² and Point-BERT, both through the fused attention
+    kernel, on the card and on the CPU; then a backbone and a fusion net
+    written to ``.pth`` files and loaded back through the config's
+    checkpoint paths."""
     import torch
     from cmdiad_tpu_torch import kernels
     from cmdiad_tpu_torch.config import Config, method_preset
@@ -1152,6 +1192,7 @@ def phase_backbones(dev, card: str):
     from cmdiad_tpu_torch.models.vit import VIT_CONFIGS, LayerScale
     from cmdiad_tpu_torch.ops.masked import host_compact_points
 
+    check_bf16_golden(dev, card)
     rng = np.random.default_rng(SEED)
     bb = DualBackbone(vit_config=VIT_CONFIGS["vit_base_patch14_dinov2.lvd142m"],
                       pm_config=PointMAEConfig(encoder_dims=256), use_flash=True,
@@ -1780,8 +1821,8 @@ TAIL_SIZE, TAIL_PITCH, TAIL_SAMPLES = 800, 1.25e-4, 3
 # operations is one instruction at half that rate
 PEAK_FP64_NO_FMA = 34e12 / 2
 # the fusers' epochs on the card in this phase: the JAX fitter runs every
-# one of max_iter epochs over the seg fuser's 802816 calibration rows, about
-# a quarter of a second an epoch on the card; --full_ocsvm times all 1000
+# one of max_iter epochs over the seg fuser's 802816 calibration rows;
+# --full_ocsvm times all 1000
 TAIL_OCSVM_EPOCHS = 10
 
 
@@ -1893,6 +1934,44 @@ def _eyecandies_tree(rng, root: str, size: int = 512, n_train: int = 2, n_test: 
                     fh.write("x")
 
 
+def check_ocsvm_sgd(dev, x: np.ndarray, nu: float):
+    """The OCSVM kernel against its plain version on the first epoch of the
+    'jax' fit of the rows ``x`` (the seg fuser's): the same rows in the same
+    order from the same state, the states bit-equal.  -> the kernels line's
+    row."""
+    import torch
+    from cmdiad_tpu_torch import prng
+    from cmdiad_tpu_torch.fusion import ocsvm
+    n, d = x.shape
+    consts = ocsvm._jax_constants(x, nu)
+    order = prng.permutations(prng.split(prng.prng_key(42, dev), 1), n).reshape(-1)
+    rows = torch.as_tensor(x, dtype=torch.float32).to(dev)[order].contiguous()
+    start = torch.zeros(ocsvm.STATE, dtype=torch.float32, device=dev)
+    start[ocsvm.MAX_D + 1] = 1.0
+    card = start.clone()
+    ocsvm.sgd_steps(rows, card, *consts)
+    plain, host_rows = start.cpu(), rows.cpu()
+    t0 = time.perf_counter()
+    ocsvm.sgd_steps(host_rows, plain, *consts)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((card.cpu() - plain).abs().max())
+    assert torch.equal(card.cpu(), plain), (card.cpu(), plain)
+    ms = _time_ms(lambda: ocsvm.sgd_steps(rows, start.clone(), *consts), 3)
+    # a step: eta (add, mul, div), the dot (2d - 1), the margin and its test
+    # (2), per column 5 (alpha w, active x, their difference, eta times it,
+    # the update), rho (3), t (1); no FMA, so each at half the fp32 peak.
+    # Each row read once, the state read and written.
+    bound_ms, bound_by = _bound(n * (8 + 7 * d), PEAK_FP32_NO_FMA,
+                                n * d * 4 + 2 * ocsvm.STATE * 4)
+    print(f"ocsvm_sgd on the card, one epoch of the seg fuser's rows ({n} steps, d {d}): "
+          f"state bit-equal to the plain version's (float32 step by step, also run on "
+          f"the host); kernel {ms:.2f} ms ({ms / n * 1e6:.2f} ns a step), plain "
+          f"{plain_ms:.0f} ms, bound {bound_ms:.4f} ms ({bound_by}; the steps depend on "
+          f"each other, so the card's rates do not bound them)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 def _ulps(a, b) -> int:
     ia = np.ascontiguousarray(a, np.float32).view(np.int32).astype(np.int64)
     ib = np.ascontiguousarray(b, np.float32).view(np.int32).astype(np.int64)
@@ -1907,9 +1986,10 @@ def phase_tail(dev, samples, card: str, seg_dir: str, full_ocsvm: bool = False):
     CPU / plain counterparts; (b) ``cli preprocess-eyecandies`` on the card
     against the CPU; (c) the default path with ``quantized_blur=True``, its
     maps bit-equal to the CPU's blur of the same score maps; (d) the fusers
-    fitted with ``ocsvm_backend='jax'`` on the card against the CPU fit;
-    (e) ``cli heatmap`` over phase 4's saved maps.  -> (the dbscan row,
-    its launches in (a))."""
+    fitted with ``ocsvm_backend='jax'`` on the card, the OCSVM kernel held
+    to its plain version; (e) ``cli heatmap`` over phase 4's saved maps.
+    -> (the dbscan and ocsvm_sgd rows, their launches in (a) and in the
+    path of (c) and (d))."""
     import torch
     from unittest import mock
     from cmdiad_tpu_torch import cli, kernels
@@ -1944,7 +2024,7 @@ def phase_tail(dev, samples, card: str, seg_dir: str, full_ocsvm: bool = False):
               f"{best} and {want_best}, planes within {plane_err:.2e} (limit 1e-9, float64 "
               f"both); {len(plane.border_points(border))} border points")
         assert best == want_best and plane_err < 1e-9, (best, want_best, plane_err)
-        row = check_dbscan(dev, scans[0][0])
+        dbscan_row = check_dbscan(dev, scans[0][0])
         kernels.reset_launches()
         torch.cuda.synchronize()
         n, seconds = cli.main(["preprocess", "-d", root, "-n", "6", "--device", "cuda"])
@@ -2028,31 +2108,36 @@ def phase_tail(dev, samples, card: str, seg_dir: str, full_ocsvm: bool = False):
     print(f"phase 9 (c) default path with quantized_blur=True: {len(blurs)} blurred batches "
           f"({sum(s.shape[0] for s, _ in blurs)} maps), every map bit-equal to the CPU's blur of "
           f"the same score map; launches {path_launches}; metrics {metrics}")
-    assert len(fits) == 2
-    for (x, fuser, card_s), name in zip(fits, ("detect", "seg")):
-        assert fuser.backend == "jax"
+    assert len(fits) == 2 and path_launches["ocsvm_sgd"] > 0, path_launches
+    (x_det, det, det_s), (x_seg, seg, seg_s) = fits
+    assert det.backend == seg.backend == "jax"
+    # the detect fuser's few rows: its whole fit again with the plain version
+    w, rho = ocsvm._fit_jax(x_det, cfg.ocsvm_nu, TAIL_OCSVM_EPOCHS, 42, "cpu")
+    assert np.array_equal(det.coef_.ravel(), w) and det.offset_[0] == rho, "detect fuser"
+    print(f"phase 9 (d) detect fuser, 'jax' fitter, {x_det.shape[0]} x {x_det.shape[1]} rows, "
+          f"{TAIL_OCSVM_EPOCHS} epochs: card {det_s:.2f} s, bit-equal to the plain version")
+    row = check_ocsvm_sgd(dev, x_seg, cfg.ocsvm_nu)
+    t0 = time.perf_counter()
+    ocsvm.sklearn_shuffle.cache_clear()
+    ocsvm.sklearn_shuffle(len(x_seg), ocsvm.sklearn_seed(42))
+    shuffle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numpy_fit = ocsvm.SGDOneClassSVM(nu=cfg.ocsvm_nu, max_iter=1000, random_state=42,
+                                     backend="sklearn")
+    fit(numpy_fit, x_seg)
+    numpy_s = time.perf_counter() - t0
+    print(f"phase 9 (d) seg fuser, 'jax' fitter, {x_seg.shape[0]} x {x_seg.shape[1]} rows, "
+          f"{TAIL_OCSVM_EPOCHS} epochs on the card: {seg_s:.2f} s ({path_launches['ocsvm_sgd']} "
+          f"ocsvm_sgd launches in the path's fit); the numpy 'sklearn' fitter {numpy_s:.2f} s "
+          f"({numpy_fit.n_iter_} epochs, its stopping rule; {shuffle_s:.2f} s of it sklearn's "
+          f"Fisher-Yates order); {card}")
+    if full_ocsvm:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        w, rho = ocsvm._fit_jax(x, cfg.ocsvm_nu, TAIL_OCSVM_EPOCHS, 42, "cpu")
-        cpu_s = time.perf_counter() - t0
-        gap = max(float(np.max(np.abs(fuser.coef_.ravel() - w)) / np.max(np.abs(w))),
-                  abs(float(fuser.offset_[0]) - rho) / abs(rho))
-        t0 = time.perf_counter()
-        numpy_fit = ocsvm.SGDOneClassSVM(nu=cfg.ocsvm_nu, max_iter=1000, random_state=42,
-                                         backend="sklearn")
-        fit(numpy_fit, x)
-        numpy_s = time.perf_counter() - t0
-        print(f"phase 9 (d) {name} fuser, 'jax' fitter, {x.shape[0]} x {x.shape[1]} rows, "
-              f"{TAIL_OCSVM_EPOCHS} epochs: card {card_s:.2f} s, CPU {cpu_s:.2f} s, within "
-              f"{gap:.2e} relative of each other (limit 1e-6); the numpy 'sklearn' fitter "
-              f"{numpy_s:.2f} s ({numpy_fit.n_iter_} epochs, its stopping rule); {card}")
-        assert gap < 1e-6, (name, gap)
-        if full_ocsvm and name == "seg":
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ocsvm._fit_jax(x, cfg.ocsvm_nu, 1000, 42, dev)
-            torch.cuda.synchronize()
-            print(f"phase 9 (d) seg fuser, 'jax' fitter, all 1000 epochs on the card: "
-                  f"{time.perf_counter() - t0:.1f} s; {card}")
+        ocsvm._fit_jax(x_seg, cfg.ocsvm_nu, 1000, 42, dev)
+        torch.cuda.synchronize()
+        print(f"phase 9 (d) seg fuser, 'jax' fitter, all 1000 epochs on the card: "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
 
     # (e) heatmaps of phase 4's saved maps
     with tempfile.TemporaryDirectory() as out:
@@ -2065,7 +2150,8 @@ def phase_tail(dev, samples, card: str, seg_dir: str, full_ocsvm: bool = False):
         print(f"phase 9 (e) cli heatmap: {n_maps} maps of phase 4 in "
               f"{time.perf_counter() - t0:.1f} s; {pngs[0]} decodes to {img.shape}")
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s; {card}")
-    return row, launches
+    return ({"dbscan": dbscan_row, "ocsvm_sgd": row},
+            {"dbscan": launches, "ocsvm_sgd": path_launches["ocsvm_sgd"]})
 
 
 def main() -> int:
@@ -2076,7 +2162,7 @@ def main() -> int:
                          "method (torch.profiler) and write the tables to DIR")
     ap.add_argument("--full_ocsvm", action="store_true",
                     help="also time the seg fuser's 'jax' fit over all 1000 epochs "
-                         "in phase 9 (about four minutes)")
+                         "in phase 9")
     args = ap.parse_args()
 
     import torch
@@ -2117,13 +2203,14 @@ def main() -> int:
     phase_backbones(dev, card)
     phase_train(dev, samples, card, args.profile)
     phase_multi(dev, samples, card, states, preds, metrics, eval_ms)
-    res["dbscan"], dbscan_launches = phase_tail(dev, samples, card, seg_dir, args.full_ocsvm)
+    tail_rows, tail_launches = phase_tail(dev, samples, card, seg_dir, args.full_ocsvm)
+    res.update(tail_rows)
     work.cleanup()
 
     rows = []
     for name, key, src, replaces in KERNEL_ROWS:
-        n = probe_launches if key == "int8_dot" else dbscan_launches if key == "dbscan" else next(
-            launches[p][key] for p in PATHS if key in PATHS[p][1])
+        n = probe_launches if key == "int8_dot" else tail_launches[key] if key in tail_launches \
+            else next(launches[p][key] for p in PATHS if key in PATHS[p][1])
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n, **res[key]})
     print(card)

@@ -9,42 +9,53 @@ the pipeline feeds it to AUROC as it is; that sign is inherited.
 Two backends, the JAX package's ``ocsvm_backend`` values:
 
 ``'sklearn'`` (default): sklearn is not available everywhere the port
-runs, so this is a numpy fit on the host of the same problem with
-sklearn's algorithm (``_plain_sgd`` with ``one_class=1``): hinge loss at
-threshold 1 on p = w·x + b, L2 penalty alpha = nu applied as weight decay,
-the intercept moving by eta·(active − alpha), the 'optimal' schedule eta =
-1/(alpha·(t0 + t − 1)) with sklearn's t0, a fresh shuffle per epoch, and
-sklearn's stopping rule (stop after ``n_iter_no_change`` epochs whose mean
-objective failed to improve on the best by ``tol``).  The shuffles come
-from ``numpy.random.default_rng(random_state)``, not sklearn's generator,
-so the fitted vector equals sklearn's in direction to within SGD noise,
-not bit for bit.
+runs, so this is a numpy fit on the host of sklearn 1.9's own fit
+(``_plain_sgd`` with ``one_class=1``): hinge loss at threshold 1 on p =
+w·x + b, L2 penalty alpha = nu applied as weight decay, the intercept
+moving by eta·(active − alpha), the 'optimal' schedule eta = 1/(alpha·(t0 +
+t − 1)) with sklearn's t0, sklearn's shuffles and its stopping rule (stop
+after ``n_iter_no_change`` epochs whose mean objective failed to improve on
+the best by ``tol``).  The shuffles are sklearn's: the seed
+``RandomState(random_state).randint(0, 2**31 - 1)``
+(``sklearn/linear_model/_stochastic_gradient.py:2342-2345``) and, before
+every epoch, ``dataset.shuffle(seed)`` (``sklearn/linear_model/
+_sgd_fast.pyx.tp:473-474``), a Fisher–Yates with the xorshift
+``our_rand_r`` (``sklearn/utils/_seq_dataset.pyx.tp:137-145``,
+``sklearn/utils/_random.pxd:20-34``).  The seed goes to every shuffle by
+value, so each epoch applies the same swaps to the previous epoch's order.
+The fit visits the rows in sklearn's order and so equals sklearn's
+``coef_``, ``offset_`` and ``n_iter_`` up to float64 rounding (the
+closed-form chunks below sum in another order than sklearn's loop).
 
-``'jax'``: the JAX package's own SGD (``cmdiad_tpu.fusion.ocsvm._fit_jax``),
-fitted on ``device``: alpha = nu/2, its t0 heuristic, float32 rows and step
-sizes, every one of ``max_iter`` epochs (no stopping rule), each epoch's
-rows in the order ``jax.random.permutation(keys[e], n)`` of ``keys =
-split(PRNGKey(seed), max_iter)`` (``fusion.threefry``), and ``rho`` as the
-offset.  JAX rounds every step's state to float32; the port evaluates the
-same recurrence in float64 over the float32 rows and step sizes, so the
-two agree to float32 rounding accumulated over the run, not bit for bit.
+``'jax'``: the JAX package's own SGD (``cmdiad_tpu.fusion.ocsvm._fit_jax``)
+as JAX computes it: alpha = nu/2, its t0 heuristic, every one of
+``max_iter`` epochs (no stopping rule), each epoch's rows in the order
+``jax.random.permutation(keys[e], n)`` of ``keys = split(PRNGKey(seed),
+max_iter)`` (``prng``), ``rho`` as the offset, and every step's operations
+rounded to float32 in JAX's order, the float32 counter t stopping at 2^24.
+On a CUDA device a hand-written kernel (``csrc/ocsvm_sgd.cu``) runs the
+steps, a block of epochs a launch; on the CPU its plain version, the same
+steps one by one in numpy float32 scalars (some microseconds a step: keep
+``n * max_iter`` small there).
 
-Speed: the per-sample updates are sequential, but within a run of steps
-that all take the same active/inactive branch the state is a linear
-recurrence with a closed form.  ``_sgd_chunk`` (and ``_jax_chunk`` for the
-``'jax'`` recurrence, as torch ops on the device) guesses the branches of
-a chunk, evaluates the whole chunk in closed form with cumulative sums, and
-iterates until the guesses reproduce themselves; every iteration fixes at
-least the first wrong guess, so the result is the sequential one up to
-float64 rounding.  Hundreds of thousands of rows fit in seconds.
+Speed of the 'sklearn' fit: the per-sample updates are sequential, but
+within a run of steps that all take the same active/inactive branch the
+state is a linear recurrence with a closed form.  ``_sgd_chunk`` guesses
+the branches of a chunk, evaluates the whole chunk in closed form with
+cumulative sums, and iterates until the guesses reproduce themselves; every
+iteration fixes at least the first wrong guess, so the result is the
+sequential one up to float64 rounding.  Hundreds of thousands of rows fit
+in seconds.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from cmdiad_tpu_torch.fusion import threefry
+from cmdiad_tpu_torch import kernels, prng
 
 BACKENDS = ("sklearn", "jax")
 
@@ -140,17 +151,55 @@ def _sgd_chunk(xc, w, b, t_first, alpha, t0, max_rounds=4):
     return n, w_new, b_new, float(np.sum(obj))
 
 
+def sklearn_seed(random_state: int) -> int:
+    """The shuffle seed sklearn's ``SGDOneClassSVM._fit_one_class`` draws:
+    ``RandomState(random_state).randint(0, 2**31 - 1)``
+    (``sklearn/linear_model/_stochastic_gradient.py:2342-2345``)."""
+    return int(np.random.RandomState(random_state).randint(0, np.iinfo(np.int32).max))
+
+
+@functools.lru_cache(maxsize=4)
+def sklearn_shuffle(n: int, seed: int) -> np.ndarray:
+    """The index order one ``dataset.shuffle(seed)`` of sklearn makes of
+    ``arange(n)``: a Fisher–Yates, ``j = i + our_rand_r(&seed) % (n - i)``
+    for ``i < n - 1`` (``sklearn/utils/_seq_dataset.pyx.tp:137-145``), with
+    the xorshift ``our_rand_r`` (``sklearn/utils/_random.pxd:20-34``: a seed
+    of 0 becomes 1, shifts 13, 17 and 5, the result ``% 2^31``).  The swaps
+    are sequential, about a second of host time at 802816 rows, so the
+    orders of the last few row counts are kept (read-only): the fusers of
+    one configuration see the same row counts class after class."""
+    mask = 0xFFFFFFFF
+    s = seed & mask
+    idx = list(range(n))
+    for i in range(n - 1):
+        if s == 0:
+            s = 1
+        s ^= (s << 13) & mask
+        s ^= s >> 17
+        s ^= (s << 5) & mask
+        j = i + (s & 0x7FFFFFFF) % (n - i)
+        idx[i], idx[j] = idx[j], idx[i]
+    order = np.asarray(idx, np.int64)
+    order.flags.writeable = False
+    return order
+
+
 def _fit(x, nu, max_iter, seed, tol, n_iter_no_change, chunk=4096):
-    """-> (w (d,), intercept b, epochs run)."""
+    """-> (w (d,), intercept b, epochs run).  ``seed`` is the estimator's
+    ``random_state``; the epochs visit the rows in sklearn's orders."""
     n, d = x.shape
     alpha = float(nu)
     t0 = _schedule_t0(alpha)
-    rng = np.random.default_rng(seed)
+    # sklearn passes the seed to every epoch's shuffle by value: each epoch
+    # applies the same swaps to the previous epoch's order
+    swaps = sklearn_shuffle(n, sklearn_seed(seed))
+    order = np.arange(n)
     w, b, t = np.zeros(d), 1.0, 1.0
     best, no_improve = np.inf, 0
     epoch = 0
     for epoch in range(1, max_iter + 1):
-        xs = x[rng.permutation(n)]
+        order = order[swaps]
+        xs = x[order]
         total, i, size = 0.0, 0, 64
         while i < n:
             rows = xs[i:i + size]
@@ -168,68 +217,86 @@ def _fit(x, nu, max_iter, seed, tol, n_iter_no_change, chunk=4096):
     return w, b, epoch
 
 
-
-def _jax_chunk(xc, eta, w, rho, alpha, nu, max_rounds=4):
-    """Run the JAX fitter's SGD steps over the rows ``xc`` (K, d) with step
-    sizes ``eta`` (K,) from state (w (d,), rho ()), all float64 tensors:
-    step j is active when rho_j − w_j·x_j > 0 and then
-    w_{j+1} = (1 − eta_j alpha) w_j + eta_j active_j x_j,
-    rho_{j+1} = rho_j − eta_j (active_j − nu).
-    Returns (steps taken L >= 1, w, rho)."""
-    k = xc.shape[0]
-    a_cum = torch.cat([eta.new_ones(1), torch.cumprod(1.0 - eta * alpha, 0)])
-    active = rho - xc @ w > 0                             # first guess: w fixed
-    n = k
-    for _ in range(max_rounds):
-        u = eta * active
-        v = torch.cumsum((u / a_cum[1:])[:, None] * xc, 0)
-        w_steps = a_cum[:k, None] * (w[None, :] + torch.cat([v.new_zeros(1, v.shape[1]), v[:-1]]))
-        rho_steps = rho + torch.cat([eta.new_zeros(1), torch.cumsum(eta * nu - u, 0)[:-1]])
-        new_active = rho_steps - torch.sum(w_steps * xc, 1) > 0
-        wrong = torch.nonzero(new_active != active)
-        active = new_active
-        if wrong.numel() == 0:
-            n = k
-            break
-        n = int(wrong[0, 0]) + 1   # steps whose branch is now verified
-    u = eta[:n] * active[:n]
-    w_new = a_cum[n] * (w + torch.sum((u / a_cum[1:n + 1])[:, None] * xc[:n], 0))
-    rho_new = rho + torch.sum(eta[:n] * nu - u)
-    return n, w_new, rho_new
+MAX_D = 4               # the 'jax' fitter's widest rows (the fusers give 1 or 2)
+STATE = MAX_D + 2       # its state: w (zero-padded to MAX_D), rho, t
+LAUNCH_ROWS = 1 << 24   # rows gathered for one launch: whole epochs of them
+_STALL = 1 << 24        # float32 t + 1 == t from here
 
 
-def _fit_jax(x: np.ndarray, nu: float, max_iter: int, seed: int, device,
-             max_chunk: int = 1 << 18):
-    """The JAX package's ``_fit_jax`` on ``device`` -> (w (d,), rho), float32
-    values as float64.  Its float32 step counter t stops at 2^24 (t + 1
-    rounds back to t there), and with it the step size."""
-    n, d = x.shape
+def _jax_constants(x: np.ndarray, nu: float):
+    """(alpha, t0, nu) as the JAX fitter rounds them into its float32 steps."""
     alpha = nu / 2.0
     t0 = 1.0 / (alpha * max(1.0, float(np.abs(x).mean())))
-    f32 = dict(dtype=torch.float32, device=device)
+    return np.float32(alpha), np.float32(t0), np.float32(nu)
+
+
+def sgd_steps(rows: torch.Tensor, state: torch.Tensor, alpha, t0, nu) -> None:
+    """Run the JAX fitter's float32 SGD steps over ``rows`` (steps, d)
+    float32, in order, from ``state`` (STATE,) float32 = w zero-padded to
+    MAX_D, rho, t (an integer-valued float32, at most 2^24), updated in
+    place.  A step: eta = 1/(alpha (t0 + t)); active = rho − w·x > 0; w −=
+    eta (alpha w − active x); rho −= eta (active − nu); t += 1.  A CUDA
+    tensor launches the kernel, a CPU tensor runs the plain version."""
+    d = rows.shape[1]
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"the 'jax' fitter takes 1 to {MAX_D} columns, got {d}")
+    if rows.is_cuda:
+        _sgd_steps_cuda(rows, state, alpha, t0, nu)
+    else:
+        _sgd_steps_plain(rows, state, alpha, t0, nu)
+
+
+def _sgd_steps_cuda(rows, state, alpha, t0, nu) -> None:
+    kernels.check_cuda_tensor(rows, "rows", torch.float32, (None, None))
+    kernels.check_cuda_tensor(state, "state", torch.float32, (STATE,))
+    if rows.shape[0] == 0:
+        return
+    kernels.launch("ocsvm_sgd", rows.data_ptr(), rows.shape[0], rows.shape[1],
+                   float(alpha), float(t0), float(nu), state.data_ptr())
+
+
+def _sgd_steps_plain(rows, state, alpha, t0, nu) -> None:
+    """The kernel's plain version: the same float32 operations in the same
+    order, step by step."""
+    alpha, t0, nu = np.float32(alpha), np.float32(t0), np.float32(nu)
+    one, zero = np.float32(1.0), np.float32(0.0)
+    x = rows.numpy()
+    d = x.shape[1]
+    st = state.numpy()
+    w = [st[j] for j in range(d)]
+    rho, t_start = st[MAX_D], int(st[MAX_D + 1])
+    # t only counts: step k has t = min(t_start + k, 2^24), exactly as the
+    # float32 sequence t + 1 has it; numpy rounds each element's operations
+    # as the scalar ones round them
+    t = np.minimum(t_start + np.arange(len(x)), _STALL).astype(np.float32)
+    eta = one / (alpha * (t0 + t))
+    for e, xi in zip(eta, x):
+        dot = w[0] * xi[0]
+        for j in range(1, d):
+            dot = dot + w[j] * xi[j]
+        active = one if rho - dot > zero else zero
+        for j in range(d):
+            w[j] = w[j] - e * (alpha * w[j] - active * xi[j])
+        rho = rho - e * (active - nu)
+    st[:d] = w
+    st[MAX_D] = rho
+    st[MAX_D + 1] = np.float32(min(t_start + len(x), _STALL))
+
+
+def _fit_jax(x: np.ndarray, nu: float, max_iter: int, seed: int, device):
+    """The JAX package's ``_fit_jax`` on ``device`` -> (w (d,), rho), float32
+    values as float64.  Each epoch's order is drawn on ``device``; the rows
+    of ``LAUNCH_ROWS // n`` epochs (at least one) are gathered into that
+    order and run by one ``sgd_steps``."""
+    n, d = x.shape
+    alpha, t0, nu32 = _jax_constants(x, nu)
     rows = torch.as_tensor(x, dtype=torch.float32).to(device)
-    alpha32, t0_32 = torch.tensor(alpha, **f32), torch.tensor(t0, **f32)
-    alpha64 = float(alpha32)
-    nu64 = float(np.float32(nu))
-    keys = threefry.split(threefry.prng_key(seed, device), max_iter)
-    w = torch.zeros(d, dtype=torch.float64, device=device)
-    rho = torch.zeros((), dtype=torch.float64, device=device)
-    order = torch.empty(0, dtype=torch.int64, device=device)
-    epochs_per_draw = max(1, max_chunk // max(n, 1) + 1)
-    next_epoch, step, total, size = 0, 0, n * max_iter, 64
-    while step < total:
-        while order.numel() < size and next_epoch < max_iter:
-            e1 = min(max_iter, next_epoch + epochs_per_draw)
-            order = torch.cat([order, threefry.permutations(keys[next_epoch:e1], n).reshape(-1)])
-            next_epoch = e1
-        idx = order[:size]
-        t = torch.clamp(torch.arange(step + 1, step + 1 + idx.numel(), device=device),
-                        max=2 ** 24).to(torch.float32)
-        m = alpha32 * (t0_32 + t)
-        eta = (torch.ones_like(m) / m).to(torch.float64)
-        taken, w, rho = _jax_chunk(rows[idx].to(torch.float64), eta, w, rho, alpha64, nu64)
-        order = order[taken:]
-        step += taken
-        # grow the chunk while guesses hold, shrink it when they do not
-        size = min(max_chunk, size * 2) if taken == idx.numel() else max(16, size // 2)
-    return w.to(torch.float32).double().cpu().numpy(), float(rho.to(torch.float32))
+    keys = prng.split(prng.prng_key(seed, device), max_iter)
+    state = torch.zeros(STATE, dtype=torch.float32, device=device)
+    state[MAX_D + 1] = 1.0
+    per_launch = max(1, LAUNCH_ROWS // max(n, 1))
+    for e0 in range(0, max_iter, per_launch):
+        order = prng.permutations(keys[e0:e0 + per_launch], n).reshape(-1)
+        sgd_steps(rows[order], state, alpha, t0, nu32)
+    state = state.cpu().double().numpy()
+    return state[:d].copy(), float(state[MAX_D])

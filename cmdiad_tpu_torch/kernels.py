@@ -36,7 +36,8 @@ _L, _F, _D = ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 # kernel -> (C entry point, argument types before the trailing stream,
 #            extra nvcc flags).  FPS, the interpolation and DBSCAN keep
 #            their distance arithmetic free of FMA contraction so that their
-#            selections match the plain versions exactly (the int8 bank-min
+#            selections match the plain versions exactly, and the OCSVM
+#            steps round every operation as JAX does (the int8 bank-min
 #            rounds each operation with intrinsics instead).
 _KERNELS = {
     "fps": ("fps_launch", (_P, _P, _I, _I, _I, _I, _P), ("--fmad=false",)),
@@ -51,6 +52,8 @@ _KERNELS = {
     "int8_dot": ("int8_dot_launch", (_P, _P, _P, _I, _I, _I, _I), ()),
     "dbscan": ("dbscan_launch", (_P, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P),
                ("--fmad=false",)),
+    "ocsvm_sgd": ("ocsvm_sgd_launch", (_P, _L, _I, _F, _F, _F, _P),
+                  ("--fmad=false",)),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNELS}

@@ -2,10 +2,13 @@
 
 The reference (``Features.get_coreset_idx_randomp``) projects the bank with
 sklearn's SparseRandomProjection, then runs an n-step greedy
-farthest-first loop in FP16.  Here the projection matrix comes from a
-``torch.Generator`` (it cannot reproduce the JAX package's or sklearn's
-random bits; tests hand in the JAX matrix instead), and 'FP16' runs the
-greedy loop in bfloat16, as the JAX package does.
+farthest-first loop in FP16.  The port draws the JAX package's projection
+matrix bit for bit (``jax.random.uniform(PRNGKey(seed), (d, n_components))``
+through ``prng.uniform``, on the CPU or the bank's device alike), so both
+packages project a bank alike and pick the same rows; 'FP16' runs the
+greedy loop in bfloat16, as the JAX package does.  The JAX package pads the
+matrix with zero columns to a multiple of 128 for its compiler; zero
+columns change no distance, and the port leaves them out.
 
 Greedy k-center is prefix-stable, so the port runs exactly ``n_select``
 steps; the JAX package's row/iteration bucketing only served its compile
@@ -19,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from cmdiad_tpu_torch import prng
+
 _GREEDY_DTYPES = {"FP16": torch.bfloat16, "TF32": torch.float32,
                   "FP32": torch.float32}
 
@@ -29,35 +34,31 @@ def johnson_lindenstrauss_min_dim(n_samples: int, eps: float) -> int:
     return int(4.0 * math.log(n_samples) / denom)
 
 
-def srp_matrix(d: int, n_components: int, seed: int = 0) -> torch.Tensor:
+def srp_matrix(d: int, n_components: int, seed: int = 0, device="cpu") -> torch.Tensor:
     """(d, n_components) Achlioptas/Li matrix, density 1/sqrt(d): entries
     -s, +s, 0 with probabilities density/2, density/2, 1 - density,
-    s = sqrt(1/density) / sqrt(n_components)."""
+    s = sqrt(1/density) / sqrt(n_components); the JAX package's matrix of
+    ``seed``, bit for bit."""
     density = 1.0 / math.sqrt(d)
     scale = math.sqrt(1.0 / density) / math.sqrt(n_components)
-    gen = torch.Generator().manual_seed(seed)
-    u = torch.rand((d, n_components), generator=gen)
+    u = prng.uniform(prng.prng_key(seed, device), (d, n_components))
     return torch.where(u < density / 2.0, -scale,
                        torch.where(u < density, scale, 0.0)).to(torch.float32)
 
 
 def sparse_random_projection(x: torch.Tensor, eps: float = 0.9, seed: int = 0,
-                             n_components: Optional[int] = None,
-                             matrix: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Project (N, D) -> (N, D') with D' the JL dimension (or the width of
-    ``matrix`` when one is given).
+                             n_components: Optional[int] = None) -> torch.Tensor:
+    """Project (N, D) -> (N, D') with D' the JL dimension.
 
     Raises ValueError when the JL dimension exceeds D, as sklearn does; the
     caller then keeps the unprojected bank (reference behaviour).
     """
     n, d = x.shape
-    if matrix is None:
-        if n_components is None:
-            n_components = johnson_lindenstrauss_min_dim(n, eps)
-        if n_components > d:
-            raise ValueError(f"JL dim {n_components} > input dim {d}; increase eps")
-        matrix = srp_matrix(d, n_components, seed)
-    return x.to(torch.float32) @ matrix.to(device=x.device, dtype=torch.float32)
+    if n_components is None:
+        n_components = johnson_lindenstrauss_min_dim(n, eps)
+    if n_components > d:
+        raise ValueError(f"JL dim {n_components} > input dim {d}; increase eps")
+    return x.to(torch.float32) @ srp_matrix(d, n_components, seed, x.device)
 
 
 def _dist_to(z: torch.Tensor, point: torch.Tensor, metric: str) -> torch.Tensor:

@@ -1,18 +1,23 @@
-"""JAX's default PRNG (threefry-2x32) and ``jax.random.permutation`` in torch.
+"""JAX's default PRNG (threefry-2x32), ``jax.random.uniform`` and
+``jax.random.permutation`` in torch.
 
-The JAX package's ``'jax'`` OCSVM fitter visits its rows each epoch in the
-order ``jax.random.permutation(keys[e], n)`` with ``keys =
-jax.random.split(jax.random.PRNGKey(seed), max_iter)``.  The port draws the
-same orders from this copy of jax 0.9.0's ``jax/_src/prng.py`` and
-``jax/_src/random.py``, written with int64 tensors that hold uint32 values
-(masked after every add and shift) so that it runs on the CPU and the card
-alike:
+Two places of the port draw the JAX package's random numbers bit for bit:
+the coreset's sparse random projection (``jax.random.uniform(PRNGKey(seed),
+(d, n_components))``, ``ops/coreset.py``) and the ``'jax'`` OCSVM fitter,
+which visits its rows each epoch in the order ``jax.random.permutation(
+keys[e], n)`` with ``keys = jax.random.split(jax.random.PRNGKey(seed),
+max_iter)`` (``fusion/ocsvm.py``).  This is a copy of jax 0.9.0's
+``jax/_src/prng.py`` and ``jax/_src/random.py``, written with int64 tensors
+that hold uint32 values (masked after every add and shift) so that it runs
+on the CPU and the card alike:
 
 * a key is a pair of uint32 words; ``PRNGKey(seed)`` is ``(seed >> 32,
   seed & 0xFFFFFFFF)``;
 * ``jax_threefry_partitionable`` is True in that release, so ``split`` and
   ``random_bits`` hash the counter pairs ``(0, i)`` of a flat index ``i``
   and 32 random bits are the XOR of the hash's two output words;
+* a float32 ``uniform`` in [0, 1) keeps a draw's top 23 bits as the
+  mantissa of a float in [1, 2) and subtracts 1;
 * ``permutation`` sorts ``arange(n)`` stably by fresh 32-bit keys,
   ``ceil(3 ln n / ln(2^32 - 1))`` times, each round's keys drawn from a
   subkey split off the running key.
@@ -72,6 +77,15 @@ def random_bits32(keys: torch.Tensor, n: int) -> torch.Tensor:
     (..., n) int64 in [0, 2^32)."""
     b1, b2 = _hash_counters(keys, n)
     return b1 ^ b2
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32 in [0, 1)) of one key
+    (2,): the bits of the flat index, row-major."""
+    n = int(np.prod(shape))
+    bits = random_bits32(key, n)
+    mantissa = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return (mantissa.view(torch.float32) - 1.0).reshape(tuple(shape))
 
 
 def shuffle_rounds(n: int) -> int:

@@ -7,9 +7,9 @@ port's dependencies (the multi-device cases spawn their ranks with
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-FPS, the interpolation and the int8 bank min/argmin must match their
-plain versions exactly (same float32 operations in the same order, no FMA;
-the int8 product is exact); the bfloat16 bank min/argmin may differ only
+FPS, the interpolation, the int8 bank min/argmin and the OCSVM steps must
+match their plain versions exactly (same float32 operations in the same
+order, no FMA; the int8 product is exact); the bfloat16 bank min/argmin may differ only
 where two bank rows tie to float32 summation order, the fused attention
 and the bfloat16 probe product to float32 summation order.
 """
@@ -713,15 +713,39 @@ def test_quantized_blur_on_the_card_is_bit_equal(dev, rng):
                        blur.quantized_knn_gaussian_blur(t))
 
 
-def test_jax_fitter_on_the_card_matches_the_cpu(dev, rng):
-    """The same float64 recurrence on the two devices: equal up to the
-    order of the cumulative sums."""
+def test_jax_fitter_on_the_card_matches_the_cpu(dev, rng, monkeypatch):
+    """The float32 steps of the kernel and of its plain version: the same
+    bits, over several launches (a launch of two epochs, then one)."""
     from cmdiad_tpu_torch.fusion import ocsvm
     x = np.abs(rng.normal(size=(20000, 2))) * [0.01, 0.02]
+    before = kernels.LAUNCHES["ocsvm_sgd"]
+    monkeypatch.setattr(ocsvm, "LAUNCH_ROWS", 40000)
     w, rho = ocsvm._fit_jax(x, 0.5, 3, 42, dev)
+    assert kernels.LAUNCHES["ocsvm_sgd"] == before + 2
+    monkeypatch.undo()
     w_cpu, rho_cpu = ocsvm._fit_jax(x, 0.5, 3, 42, "cpu")
-    np.testing.assert_allclose(w, w_cpu, rtol=1e-6)
-    assert abs(rho - rho_cpu) <= 1e-6 * abs(rho_cpu)
+    assert np.array_equal(w, w_cpu) and rho == rho_cpu
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("t_start", [1, 2 ** 24 - 1500])
+def test_ocsvm_sgd_kernel_matches_plain(dev, rng, d, t_start):
+    """Steps in tiles of 1024 and a ragged last tile, from a state in mid
+    fit; from t = 2^24 - 1500 the counter stops at 2^24 after 1500 of the
+    3000 steps, and the step size with it."""
+    from cmdiad_tpu_torch.fusion import ocsvm
+    rows = torch.from_numpy((np.abs(rng.normal(size=(3000, d))) * 0.5).astype(np.float32))
+    state = torch.zeros(ocsvm.STATE, dtype=torch.float32)
+    state[:d] = torch.from_numpy(rng.uniform(0.1, 1.0, d).astype(np.float32))
+    state[ocsvm.MAX_D] = 0.3
+    state[ocsvm.MAX_D + 1] = float(t_start)
+    args = (np.float32(0.25), np.float32(1.7), np.float32(0.5))
+    card = state.to(dev)
+    for part in (rows[:2500], rows[2500:]):          # two launches, the state between
+        ocsvm.sgd_steps(part.to(dev), card, *args)
+        ocsvm.sgd_steps(part, state, *args)
+    assert torch.equal(card.cpu(), state)
+    assert float(state[ocsvm.MAX_D + 1]) == min(t_start + 3000, 2 ** 24)
 
 
 def test_eyecandies_projection_on_the_card_equals_the_cpu(dev, rng, tmp_path):

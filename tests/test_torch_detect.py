@@ -10,7 +10,8 @@ package's l2 scoring is routed through its bf16 bank-min kernel
   the slice's prediction tolerances (scores 1e-5, maps within the near-tie
   envelope, metrics 1e-3), writing the same ``save_seg_results`` and
   ``save_raw_results`` files; the port's own fit tracks the JAX fit's
-  metrics to 1e-2 (the coreset and the OCSVM shuffles differ);
+  metrics to 1e-4 (the same coreset projection and OCSVM order; measured
+  4.1e-6 at most, from the backbones' float32 differences);
 * ``run_detection`` over two classes, the second preloaded on a thread;
 * ``python -m cmdiad_tpu_torch.cli detect --device cpu``, whose tables are
   pandas' ``to_markdown(index=False)`` text;
@@ -169,7 +170,7 @@ def test_single_modal_method_tracks_jax(jax_bf16_selection, root, backbones,
         np.testing.assert_allclose(own.method.stats[n], jr.method.stats[n], rtol=1e-5,
                                    atol=1e-6)
     for k in METRICS:
-        assert abs(mo[k] - mj[k]) <= 1e-2, (k, mo, mj)
+        assert abs(mo[k] - mj[k]) <= 1e-4, (k, mo, mj)
 
 
 def test_run_detection_over_two_classes_tracks_jax(jax_bf16_selection, root, backbones):
@@ -183,7 +184,7 @@ def test_run_detection_over_two_classes_tracks_jax(jax_bf16_selection, root, bac
     assert list(mt) == list(mj) == ["widget", "gadget"]
     for cls in mt:
         for k in METRICS:
-            assert abs(mt[cls][k] - mj[cls][k]) <= 1e-2, (cls, k, mt, mj)
+            assert abs(mt[cls][k] - mj[cls][k]) <= 1e-4, (cls, k, mt, mj)
     assert [c for c, _ in done] == ["widget", "gadget"]
     assert all(t["eval_images_per_s"] > 0 and "bank_pass_s" in t for _, t in done)
 

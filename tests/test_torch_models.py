@@ -4,7 +4,10 @@ parameters carried across by ``models.bridge``.
 float32 on both sides: features agree to about 1e-5 relative (summation
 order, and Flax's E[x²]−E[x]² LayerNorm variance against PyTorch's).
 FPS and KNN pick the same centres and neighbour sets on these inputs.
-bfloat16 on both sides: features agree to a few bfloat16 ulps.
+bfloat16 on both sides: features agree to a few bfloat16 ulps, at small
+widths here and at full width against the JAX outputs saved in
+``tests/data/jax_bf16_backbones.npz`` (``tests/bf16_golden.py``), which the
+card is held to as well.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import bf16_golden
 from cmdiad_tpu.data.synthetic import _blob_pc
 from cmdiad_tpu.models.backbone import DualBackbone as JaxBackbone
 from cmdiad_tpu.models.point_mae import PointMAEConfig as JaxPM
@@ -124,6 +128,29 @@ def test_models_run_in_bfloat16(rng, use_flash):
         diff = np.abs(g - w)
         assert diff.max() <= 4 * ulp * np.abs(w).max(), (k, diff.max())
         assert diff.mean() <= 2 * ulp * np.abs(w).mean(), (k, diff.mean())
+
+
+def test_bf16_backbones_hold_to_the_saved_jax_outputs():
+    """ViT-B/8 at 224² and Point-MAE over 1024 groups of 128, two blocks
+    each, bfloat16 with the fused attention's plain version: the port's CPU
+    path within ``bf16_golden``'s tolerances of the saved JAX outputs, the
+    FPS centres equal."""
+    tb, _ = bf16_golden.port_backbone("cpu")
+    images, pc = bf16_golden.inputs()
+    out = tb.extract(images=torch.from_numpy(images), organized_pc=torch.from_numpy(pc))
+    got = bf16_golden.summarize({k: v.numpy() for k, v in out.items()})
+    print(bf16_golden.check(got, bf16_golden.load()))
+
+
+@pytest.mark.slow
+def test_saved_jax_bf16_outputs_are_reproduced():
+    """The saved JAX outputs are what the JAX package gives for
+    ``bf16_golden``'s recipe today, bit for bit."""
+    want = bf16_golden.load()
+    got = bf16_golden.jax_outputs()
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 @pytest.mark.slow

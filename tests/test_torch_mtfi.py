@@ -15,9 +15,10 @@ the same way.
   JAX package's to 1e-5, the port's coreset on the JAX package's bank picks
   the JAX package's rows exactly, the bank sizes are equal, the stats-only
   bank keeps no rows, the Q1 statistics agree (std to 1e-5, mean to 1e-6
-  absolute), the metrics to 1e-2 (the bfloat16 picks on the two packages'
-  own banks may differ where float32-level feature differences reorder
-  near-equal distances, and the OCSVM shuffles differ);
+  absolute), the metrics to 5e-3 (the same OCSVM order, but the bfloat16
+  picks on the two packages' own banks may differ where float32-level
+  feature differences reorder near-equal distances; measured 3.7e-3 at
+  most, FtoI rgb main's pixel AUROC);
 * evaluation batches without the other modality's keys give the same
   predictions, and the other backbone runs on nothing but hallucinated
   input;
@@ -219,7 +220,7 @@ def test_mtfi_preset_tracks_jax(fits, samples, monkeypatch, preset):
         assert abs(om.stats[n][0] - jm.stats[n][0]) < 1e-6
         np.testing.assert_allclose(om.stats[n][1], jm.stats[n][1], rtol=1e-5)
     for k in METRICS:
-        assert abs(mo[k] - fit["mj"][k]) <= 1e-2, (k, mo, fit["mj"])
+        assert abs(mo[k] - fit["mj"][k]) <= 5e-3, (k, mo, fit["mj"])
 
 
 @pytest.mark.parametrize("preset", PRESETS)

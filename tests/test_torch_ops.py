@@ -222,18 +222,45 @@ def test_jl_dim_and_projection_matrix():
 
 
 def test_projection_with_the_jax_matrix_matches(rng):
-    """The port's generator cannot reproduce jax.random's bits, so the JAX
-    matrix is handed in: the projections then agree."""
-    import jax
+    """The port draws the JAX package's matrix: the projections agree to
+    float32 summation order."""
     x = rng.normal(size=(500, 96)).astype(np.float32)
     k = 40
-    u = np.asarray(jax.random.uniform(jax.random.PRNGKey(0), (96, k)))
-    density = 1 / np.sqrt(96)
-    scale = np.sqrt(1 / density) / np.sqrt(k)
-    mat = np.where(u < density / 2, -scale, np.where(u < density, scale, 0.0)).astype(np.float32)
     want = np.asarray(jcore.sparse_random_projection(jnp.asarray(x), seed=0, n_components=k))
-    got = coreset.sparse_random_projection(_t(x), matrix=_t(mat)).numpy()
+    got = coreset.sparse_random_projection(_t(x), seed=0, n_components=k).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 42])
+def test_srp_matrix_is_the_jax_matrix(seed):
+    """At the features' width and a 200704-row bank's JL dimension (301):
+    the matrix built from ``jax.random.uniform`` as the JAX package builds
+    it, and the JAX package's own projection of the identity, bit for bit."""
+    import jax
+    d, k = 768, jcore.johnson_lindenstrauss_min_dim(200704, 0.9)
+    got = coreset.srp_matrix(d, k, seed).numpy()
+    u = jax.random.uniform(jax.random.PRNGKey(seed), (d, k))
+    density = 1.0 / np.sqrt(d)
+    scale = np.sqrt(1.0 / density) / np.sqrt(k)
+    want = np.asarray(jnp.where(u < density / 2.0, -scale,
+                                jnp.where(u < density, scale, 0.0)).astype(jnp.float32))
+    assert np.array_equal(got, want)
+    eye = jnp.eye(d, dtype=jnp.float32)
+    assert np.array_equal(got, np.asarray(jcore._srp_project(eye, jnp.uint32(seed), k)))
+
+
+@pytest.mark.parametrize("dtype", ["FP32", "FP16"])
+@pytest.mark.parametrize("seed", [0, 42])
+def test_coreset_select_picks_the_jax_rows_at_width_768(dtype, seed):
+    """A 3000 x 768 bank projects (JL dimension 197): the port's coreset
+    picks the JAX package's 300 rows in order.  The projected banks agree
+    only to float32 summation order (the two matmuls sum in other orders),
+    so on another bank a near-tie can still order two picks otherwise."""
+    bank = np.random.default_rng(0).normal(size=(3000, 768)).astype(np.float32)
+    got = coreset.coreset_select(_t(bank), 0.1, seed=seed, compute_dtype=dtype).numpy()
+    want = np.asarray(jcore.coreset_select(jnp.asarray(bank), 0.1, seed=seed,
+                                           compute_dtype=dtype, bucket_rows=1))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["FP32", "FP16"])

@@ -12,9 +12,10 @@ moves single patch distances (about 1 patch in 10^4 here).
 (a) JAX fits, the port serves its saved state (and the other way round):
     scores to 1e-5, maps to the near-tie envelope, metrics to 1e-3.
 (b) the port fits by itself: banks before the coreset, Q1 statistics and
-    NN tables agree tightly; the coreset's bf16 greedy loop diverges after
-    the first float32-level difference (chaotic), and the OCSVM shuffles
-    differ, so metrics are held to 1e-2 and fuser directions to 1e-3.
+    NN tables agree tightly; the coreset draws the JAX package's projection
+    and the OCSVM fits in sklearn's order, so the fits differ only by the
+    banks' float32 differences: metrics held to 2e-3 (measured 6.1e-4),
+    fuser directions to 1e-8 (measured 2.9e-10).
 """
 
 import os
@@ -191,11 +192,11 @@ def test_port_fit_tracks_jax_fit(fitted):
     for f in ("detect_fuser", "seg_fuser"):
         a = np.asarray(getattr(tm, f).coef_).ravel()
         b = np.asarray(getattr(jm, f).coef_).ravel()
-        assert 1.0 - a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) < 1e-3, f
+        assert 1.0 - a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) < 1e-8, f
     mt, _, _ = _serve(tm, fitted["test"])
     mj, _, _ = _serve(jm, fitted["test"])
     for k in METRICS:
-        assert abs(mt[k] - mj[k]) <= 1e-2, (k, mt, mj)
+        assert abs(mt[k] - mj[k]) <= 2e-3, (k, mt, mj)
     assert mt["pixel_rocauc"] > 0.9 and mt["image_rocauc"] > 0.5
 
 

@@ -4,14 +4,11 @@ heatmap renderer.
 
 Tolerances: the quantized blur bit-equal (the same integer arithmetic);
 ``jax.random.permutation`` equal; the ``'jax'`` fit's coefficients and
-offset within 1e-4 relative of ``cmdiad_tpu.fusion.ocsvm._fit_jax`` (JAX
-rounds each step's state to float32, the port evaluates the recurrence in
-float64; the gap measured on random rows is 1.1e-5 at most).  Rows of
-small values over many steps make JAX's float32 sums drift further from
-the exact recurrence: on ``DoubleMethod``'s seg-fuser rows (20480 x 2,
-50 epochs) the gap is 2.6e-4, held there to 1e-3, while the port equals
-the float64 sequential recurrence and JAX the float32 one
-(``test_jax_fitter_is_the_float64_recurrence``).  The heatmap's panels
+offset within 1e-4 relative of ``cmdiad_tpu.fusion.ocsvm._fit_jax``, on
+random rows and on ``DoubleMethod``'s fuser rows alike.  Both run the same
+float32 steps in the same order; the port's plain version equals a
+step-by-step float32 loop bit for bit, and JAX's compiled loop sits within
+1e-6 of it (``test_jax_fitter_is_the_float32_recurrence``).  The heatmap's panels
 equal ``matplotlib.cm.jet/gray(Normalize()(x), bytes=True)[..., :3]``.
 Through ``DoubleMethod`` with ``quantized_blur=True`` (and the ``'jax'``
 fitter) the predictions are held to ``test_torch_slice.py``'s default-path
@@ -35,9 +32,10 @@ from cmdiad_tpu.models.vit import ViTConfig as JaxViT
 from cmdiad_tpu.ops import blur as jax_blur
 from cmdiad_tpu.runner import CMDIADRunner as JaxRunner
 from cmdiad_tpu.utils import heatmap as jax_heatmap
+from cmdiad_tpu_torch import prng
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.data import png
-from cmdiad_tpu_torch.fusion import ocsvm, threefry
+from cmdiad_tpu_torch.fusion import ocsvm
 from cmdiad_tpu_torch.models.backbone import DualBackbone
 from cmdiad_tpu_torch.models.bridge import load_jax_params
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
@@ -84,11 +82,11 @@ def test_pillow_box_blur_u8_is_bit_exact(rng):
 # ---------------------------------------------------------- threefry -----
 
 def test_threefry_keys_and_split_match_jax():
-    assert threefry.PARTITIONABLE == jax.config.jax_threefry_partitionable
+    assert prng.PARTITIONABLE == jax.config.jax_threefry_partitionable
     for seed in (0, 42, 2 ** 31 - 1):
         key = jax.random.PRNGKey(seed)
-        assert np.array_equal(threefry.prng_key(seed).numpy(), np.asarray(key))
-        assert np.array_equal(threefry.split(threefry.prng_key(seed), 5).numpy(),
+        assert np.array_equal(prng.prng_key(seed).numpy(), np.asarray(key))
+        assert np.array_equal(prng.split(prng.prng_key(seed), 5).numpy(),
                               np.asarray(jax.random.split(key, 5)))
 
 
@@ -96,10 +94,10 @@ def test_threefry_keys_and_split_match_jax():
                                     (3, 70000)])
 def test_permutation_equals_jax(seed, n):
     """n up to 1625 sorts once, from 1626 twice."""
-    assert threefry.shuffle_rounds(n) == (1 if 1 < n <= 1625 else 0 if n <= 1 else 2)
+    assert prng.shuffle_rounds(n) == (1 if 1 < n <= 1625 else 0 if n <= 1 else 2)
     keys = jax.random.split(jax.random.PRNGKey(seed), 3)
     want = np.stack([np.asarray(jax.random.permutation(k, n)) for k in keys])
-    got = threefry.permutations(threefry.split(threefry.prng_key(seed), 3), n).numpy()
+    got = prng.permutations(prng.split(prng.prng_key(seed), 3), n).numpy()
     assert np.array_equal(got, want)
 
 
@@ -135,8 +133,8 @@ def _sequential(x, nu, max_iter, seed, dtype):
     a32, t = np.float32(alpha), np.float32(1.0)
     rows = x.astype(np.float32).astype(dtype)
     w, rho = np.zeros(x.shape[1], dtype), dtype(0.0)
-    keys = threefry.split(threefry.prng_key(seed), max_iter)
-    for order in threefry.permutations(keys, len(x)).numpy():
+    keys = prng.split(prng.prng_key(seed), max_iter)
+    for order in prng.permutations(keys, len(x)).numpy():
         for i in order:
             eta = dtype(np.float32(1.0) / (a32 * (t0 + t)))
             active = dtype(1.0) if rho - np.dot(w, rows[i]) > 0 else dtype(0.0)
@@ -146,16 +144,27 @@ def _sequential(x, nu, max_iter, seed, dtype):
     return w, rho
 
 
-def test_jax_fitter_is_the_float64_recurrence(rng):
-    """Where the port and JAX part: the port is the sequential recurrence
-    in float64, JAX the same recurrence in float32."""
+def test_jax_fitter_is_the_float32_recurrence(rng, monkeypatch):
+    """The port's plain version is the float32 loop step by step, bit for
+    bit, also when the state crosses launches (three epochs a launch), and
+    JAX's compiled loop lies within 1e-6 of both."""
     x = np.abs(rng.normal(size=(200, 2))) * [0.01, 0.02]
-    w64, rho64 = _sequential(x, 0.5, 10, 42, np.float64)
     w32, rho32 = _sequential(x, 0.5, 10, 42, np.float32)
     w, rho = ocsvm._fit_jax(x, 0.5, 10, 42, "cpu")
-    assert _rel_gap(w, [rho], w64, [rho64]) < 1e-6      # float64, then rounded to float32
+    assert np.array_equal(w.astype(np.float32), w32) and np.float32(rho) == rho32
+    monkeypatch.setattr(ocsvm, "LAUNCH_ROWS", 3 * len(x))
+    w3, rho3 = ocsvm._fit_jax(x, 0.5, 10, 42, "cpu")
+    assert np.array_equal(w3, w) and rho3 == rho
     jw, jrho = jax_ocsvm._fit_jax(x, 0.5, 10, 42)
     assert _rel_gap(jw, jrho, w32, [rho32]) < 1e-6
+    assert _rel_gap(w, [rho], jw, jrho) < 1e-6
+
+
+def test_jax_fitter_refuses_rows_wider_than_its_state(rng):
+    """The kernel's state holds ``MAX_D`` columns; both devices refuse more."""
+    x = np.abs(rng.normal(size=(8, ocsvm.MAX_D + 1)))
+    with pytest.raises(ValueError, match="columns"):
+        ocsvm.SGDOneClassSVM(backend="jax", device="cpu").fit(x)
 
 
 def test_unknown_ocsvm_backend_raises():
@@ -188,8 +197,7 @@ def test_quantized_blur_and_jax_fitter_through_double_method(jax_bf16_selection,
     for fuser, x in zip((port.detect_fuser, port.seg_fuser), rows):
         assert fuser.backend == "jax"
         w, rho = jax_ocsvm._fit_jax(x, 0.5, 50, 42)
-        limit = FIT_RTOL if fuser is port.detect_fuser else 1e-3   # JAX's float32 drift
-        assert _rel_gap(fuser.coef_, fuser.offset_, w, rho) < limit
+        assert _rel_gap(fuser.coef_, fuser.offset_, w, rho) < FIT_RTOL
     path = os.path.join(tmp_path, "port.npz")
     port.save_state(path)
     jax_method = JaxRunner(JaxConfig(**cfg), backbone=jb, params=params).method

@@ -8,10 +8,9 @@ against one device (``tests/test_parallel.py``): metrics 5e-3, image scores
 rtol 1e-4, maps rtol 1e-3 / atol 1e-4.  A port run serving a JAX fit is
 held to the JAX run as ``test_torch_slice.py`` holds two packages serving
 one state: image scores rtol 1e-5, maps within the bf16 near-tie envelope
-(max 1e-2, mean 1e-4 of the map maximum).  The port's own fit is held to
-the JAX package's own fit only through served state: the two packages'
-OCSVM shuffles differ, so their own fits' metrics differ by up to 1e-2
-(``test_torch_detect.py``).
+(max 1e-2, mean 1e-4 of the map maximum).  Here the port's own fit is
+held to the JAX package's only through served state; one device's own fits
+are compared in ``test_torch_detect.py``.
 """
 
 import concurrent.futures

@@ -3,8 +3,13 @@
 ``cmdiad_tpu_torch.parallel.launch.spawn`` runs them by name in fresh
 processes, one a rank, gloo on the CPU; each returns numpy results for the
 test process to compare.  This module imports no JAX: the ranks never
-load it.  Each rank computes with one thread, two for the detection
-runs (six test workers already share the machine).
+load it.  Each rank computes with one intra-op thread.  With two, a
+detection rank's float32 results were not reproducible: serving one saved
+state again and again, about one serve in ten computed the first
+batch's exact bank distances wrong in a few hundred rows (up to 3e-4
+relative, image scores up to 2e-4 apart), the same call on the same
+tensors right again just after; with one thread none of 50 serves did.
+That moved the served predictions past the 1e-5 their tests allow.
 """
 
 import os
@@ -98,7 +103,7 @@ def detect(device, cfg_kw, vit, pm, params, samples_kw, fusion_sd=None, save=Non
     same for one device (no mesh, this process) under "one".  With
     ``save`` the own fit is written there (rank 0 writes) and served again
     by a fresh method under "reloaded"."""
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     bb = _backbone(device, vit, pm, params)
     train, test = make_synthetic_samples(**samples_kw)
     out = {}
@@ -126,7 +131,7 @@ def detect(device, cfg_kw, vit, pm, params, samples_kw, fusion_sd=None, save=Non
 def serve(device, cfg_kw, vit, pm, params, samples_kw, state, fusion_sd=None):
     """The fitted state ``state`` served by a method of ``Config(**cfg_kw)``
     on this rank: the evaluation ``(metrics, image scores, maps)``."""
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     cfg = Config(**cfg_kw)
     bb = _backbone(device, vit, pm, params)
     method = build_method(cfg, backbone=bb, fusion=_fusion(device, cfg, bb, fusion_sd))
