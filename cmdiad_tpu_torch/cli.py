@@ -12,7 +12,11 @@
 method, prints one markdown table a metric and, with ``--save_results``
 (default true), appends them to ``<results_dir>/*.md``.  Every ``Config``
 field is a flag.  ``--device`` defaults to ``cuda``; ``--trace_dir DIR``
-writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``.
+writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``, which
+holds the port's ``span.*`` ranges (``tracing.SPANS``: the predict call,
+its upload and readback, and the point path's FPS, KNN, group encoder,
+blocks and regrid), and prints the predict path's counters a call (host
+syncs, MB uploaded) beside the trace's path.
 The MTFI methods take their fusion net from ``--fusion_module_path`` (a
 reference ``.pth`` or the JAX package's ``.npz``), the backbones their
 weights from ``--rgb_ckpt_path`` and ``--xyz_ckpt_path``.
@@ -57,6 +61,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch.distributed as dist
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.config import Config, TrainConfig
 from cmdiad_tpu_torch.models import convert
 from cmdiad_tpu_torch.parallel.mesh import init_from_env
@@ -184,6 +189,15 @@ def _rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def counters_line(c: Dict[str, int]) -> str:
+    """One line of the predict path's counters (``tracing.counters()``) a
+    call."""
+    calls = max(c["calls"], 1)
+    return (f"predict path: {c['host_syncs'] / calls:.2f} host syncs and "
+            f"{c['h2d_bytes'] / calls / 1e6:.4f} MB uploaded a call over "
+            f"{c['calls']} calls, {c['images']} images")
+
+
 def cmd_detect(args):
     """-> (results {class: metrics}, timings {class: timings})."""
     from cmdiad_tpu_torch.runner import run_detection
@@ -205,6 +219,7 @@ def cmd_detect(args):
         acts = [ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
+        tracing.reset_counters()
         with profile(activities=acts) as prof:
             results = run()
         if _rank0():
@@ -212,6 +227,7 @@ def cmd_detect(args):
             path = os.path.join(args.trace_dir, "trace.json")
             prof.export_chrome_trace(path)
             print(f"torch.profiler trace written to {path} (chrome://tracing or Perfetto)")
+            print(counters_line(tracing.counters()))
     else:
         results = run()
     if _rank0():

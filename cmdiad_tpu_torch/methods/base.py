@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.fusion.ocsvm import SGDOneClassSVM
 from cmdiad_tpu_torch.metrics import calculate_au_pro, roc_auc_score
@@ -143,6 +144,7 @@ class MemoryBankMethod:
         self.au_pro = self.au_pro_001 = 0.0
 
     # ---------------- features --------------------------------------------
+    @tracing.span("upload")
     def upload(self, batch: dict, keys=None) -> Dict[str, torch.Tensor]:
         """The sample arrays of a stacked batch under ``keys`` (default
         ``needed_keys``) on the device; data-parallel, this rank's block of
@@ -154,7 +156,7 @@ class MemoryBankMethod:
                 arr = np.asarray(batch[k])
                 if self.dp_mesh is not None:
                     arr = shard_batch(arr, self.dp_mesh)[0]
-                out[k] = torch.as_tensor(arr, device=self.device)
+                out[k] = tracing.to_device(arr, self.device)
         return out
 
     def gather(self, rows: torch.Tensor, n: int) -> torch.Tensor:
@@ -311,16 +313,16 @@ class MemoryBankMethod:
         self.s_lib, self.s_map_lib = [], []
 
     def _fuser_weights(self):
-        return tuple(torch.as_tensor(np.asarray(f.coef_).reshape(-1),
-                                     dtype=torch.float32, device=self.device)
+        return tuple(tracing.to_device(np.asarray(f.coef_).reshape(-1), self.device,
+                                       torch.float32)
                      for f in (self.detect_fuser, self.seg_fuser))
 
     def _record_predictions(self, s_vec, maps, batch):
         """Fuse λ-weighted (B, k) scores and (B, k, gt, gt) maps through the
         linear fusers (score_samples = x·coef) and store the valid rows."""
         wd, ws = self._fuser_weights()
-        s = (s_vec.to(torch.float32) @ wd).cpu().numpy()
-        fused = torch.einsum("bkxy,k->bxy", maps.to(torch.float32), ws).cpu().numpy()
+        s = tracing.to_host(s_vec.to(torch.float32) @ wd).numpy()
+        fused = tracing.to_host(torch.einsum("bkxy,k->bxy", maps.to(torch.float32), ws)).numpy()
         for i in range(batch["_n"]):
             self._store_prediction(float(s[i]), fused[i].astype(np.float64),
                                    batch["gt"][i], batch["label"][i],

@@ -28,6 +28,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.data.feature_store import FeatureStore
 from cmdiad_tpu_torch.methods.base import MemoryBankMethod
 
@@ -70,8 +71,9 @@ class BatchedScoresMixin:
         self.s_map_lib.append(maps)
 
     def predict_batch(self, batch: dict):
-        s_vec, maps = self._scores_batch(batch)
-        self._record_predictions(s_vec, maps, batch)
+        with tracing.predict_call(batch["_n"]):
+            s_vec, maps = self._scores_batch(batch)
+            self._record_predictions(s_vec, maps, batch)
 
 
 class RGBMethod(BatchedScoresMixin, MemoryBankMethod):
@@ -152,7 +154,7 @@ class DoubleMethod(BatchedScoresMixin, MemoryBankMethod):
 
         def feat(key):
             if key not in host:
-                host[key] = out[key][0].cpu().numpy()
+                host[key] = tracing.to_host(out[key][0]).numpy()
             return host[key]
 
         cls = self.class_name or "cls"
@@ -210,10 +212,11 @@ class DoubleMethod(BatchedScoresMixin, MemoryBankMethod):
         if not self._stores:
             BatchedScoresMixin.predict_batch(self, batch)
             return
-        for sample in _sample_batches(batch):
-            out = self.extract(sample, with_2828=True)
-            self._maybe_dump("test", sample, out)
-            self._record_predictions(*self._weighted_scores(out), sample)
+        with tracing.predict_call(batch["_n"]):
+            for sample in _sample_batches(batch):
+                out = self.extract(sample, with_2828=True)
+                self._maybe_dump("test", sample, out)
+                self._record_predictions(*self._weighted_scores(out), sample)
 
 
 class HallucinationMethod(BatchedScoresMixin, MemoryBankMethod):

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.device import resolve_device
 from cmdiad_tpu_torch.models.point_mae import (PointMAEConfig, PointTransformer,
                                                group_points)
@@ -129,16 +130,17 @@ class DualBackbone:
             work_pts, work_mask, self.pm_config.num_group,
             self.pm_config.group_size)
         feats = self.point(work_pts, centers, ori_idx).to(torch.float32)
-        interp = three_nn_interpolate(points, mask, centers, feats,
-                                      compute_dtype=self.compute_dtype)
-        grid = interp.reshape(b, h, w, -1)
-        xyz_patch = avg3x3_then_adaptive_pool(grid, 56).reshape(b, 56 * 56, -1)
-        out = {"xyz_patch": xyz_patch.to(torch.float32), "centers": centers,
-               "ori_idx": ori_idx, "center_idx": center_idx,
-               "group_feats": feats}
-        if with_2828:
-            out["xyz_patch_2828"] = avg3x3_then_adaptive_pool(grid, 28).reshape(
-                b, 28 * 28, -1).to(torch.float32)
+        with tracing.span("regrid"):
+            interp = three_nn_interpolate(points, mask, centers, feats,
+                                          compute_dtype=self.compute_dtype)
+            grid = interp.reshape(b, h, w, -1)
+            xyz_patch = avg3x3_then_adaptive_pool(grid, 56).reshape(b, 56 * 56, -1)
+            out = {"xyz_patch": xyz_patch.to(torch.float32), "centers": centers,
+                   "ori_idx": ori_idx, "center_idx": center_idx,
+                   "group_feats": feats}
+            if with_2828:
+                out["xyz_patch_2828"] = avg3x3_then_adaptive_pool(grid, 28).reshape(
+                    b, 28 * 28, -1).to(torch.float32)
         return out
 
     def extract(self, images=None, organized_pc=None, compact_pts=None,

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.models.vit import Block, layer_norm, linear
 from cmdiad_tpu_torch.ops.fps import farthest_point_sample
 from cmdiad_tpu_torch.ops.knn import masked_knn
@@ -58,8 +59,10 @@ class PointMAEConfig:
 def group_points(points, mask, num_group: int, group_size: int):
     """Masked FPS + KNN grouping indices: points (B, P, 3), mask (B, P) ->
     centers (B, G, 3), ori_idx (B, G, M), center_idx (B, G)."""
-    centers, center_idx = farthest_point_sample(points, mask, num_group)
-    ori_idx = masked_knn(points, mask, centers, group_size)
+    with tracing.span("fps"):
+        centers, center_idx = farthest_point_sample(points, mask, num_group)
+    with tracing.span("knn"):
+        ori_idx = masked_knn(points, mask, centers, group_size)
     return centers, ori_idx, center_idx
 
 
@@ -150,18 +153,20 @@ class PointTransformer(nn.Module):
 
     def forward(self, points, centers, idx):
         c, dt = self.config, self.dtype
-        x = self.encoder(points.to(dt), centers.to(dt), idx)
-        pos = linear(self.pos_embed[2],
-                     F.gelu(linear(self.pos_embed[0], centers.to(dt))))
-        if self.with_cls:
-            b = x.shape[0]
-            x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1),
-                           linear(self.reduce_dim, x)], dim=1)
-            pos = torch.cat([self.cls_pos.to(dt).expand(b, -1, -1), pos], dim=1)
-        first = 1 if self.with_cls else 0
-        fetched = []
-        for i, blk in enumerate(self.blocks.blocks):
-            x = blk(x + pos)
-            if i in c.fetch_idx:
-                fetched.append(layer_norm(self.norm, x)[:, first:])
-        return torch.cat(fetched, dim=-1)
+        with tracing.span("group_encoder"):
+            x = self.encoder(points.to(dt), centers.to(dt), idx)
+        with tracing.span("point_blocks"):
+            pos = linear(self.pos_embed[2],
+                         F.gelu(linear(self.pos_embed[0], centers.to(dt))))
+            if self.with_cls:
+                b = x.shape[0]
+                x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1),
+                               linear(self.reduce_dim, x)], dim=1)
+                pos = torch.cat([self.cls_pos.to(dt).expand(b, -1, -1), pos], dim=1)
+            first = 1 if self.with_cls else 0
+            fetched = []
+            for i, blk in enumerate(self.blocks.blocks):
+                x = blk(x + pos)
+                if i in c.fetch_idx:
+                    fetched.append(layer_norm(self.norm, x)[:, first:])
+            return torch.cat(fetched, dim=-1)

@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from cmdiad_tpu_torch import tracing
+
 
 def _extended_box_kernel(sigma2: float) -> np.ndarray:
     """1-D extended box kernel for one pass: integer radius l plus
@@ -46,8 +48,8 @@ def _blur_matrix(n: int, radius: float, passes: int = 3) -> np.ndarray:
 
 def pil_gaussian_blur(img: torch.Tensor, radius: float = 4.0) -> torch.Tensor:
     """Blur the trailing two axes of ``img`` ((..., H, W)) like PIL."""
-    mh = torch.from_numpy(_blur_matrix(img.shape[-2], radius)).to(img)
-    mw = torch.from_numpy(_blur_matrix(img.shape[-1], radius)).to(img)
+    mh = tracing.to_device(_blur_matrix(img.shape[-2], radius), img.device, img.dtype)
+    mw = tracing.to_device(_blur_matrix(img.shape[-1], radius), img.device, img.dtype)
     out = torch.einsum("oh,...hw->...ow", mh, img)
     return torch.einsum("ow,...hw->...ho", mw, out)
 
@@ -129,4 +131,5 @@ def quantized_knn_gaussian_blur(score_map: torch.Tensor,
     u8 = (s / safe * 255.0).to(torch.uint8)          # truncation, as .byte()
     # a tensor divisor: CUDA divides by a Python scalar as a multiplication
     # by its reciprocal, which is not the correctly rounded quotient
-    return pil_gaussian_blur_u8(u8, radius).to(torch.float32) / s.new_tensor(255.0) * safe
+    return (pil_gaussian_blur_u8(u8, radius).to(torch.float32)
+            / tracing.to_device(255.0, s.device, s.dtype) * safe)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.ops.masked import BIG_DIST, first_valid_index
 
 
@@ -34,7 +35,7 @@ def masked_knn(points: torch.Tensor, mask: torch.Tensor,
     for b in range(points.shape[0]):   # one (G, P) distance matrix at a time
         d = pairwise_sqdist(centers[b].to(torch.float32),
                             points[b].to(torch.float32))
-        d = torch.where(mask[b][None, :], d, torch.tensor(BIG_DIST, device=d.device))
+        d = torch.where(mask[b][None, :], d, tracing.to_device(BIG_DIST, d.device))
         d = d + 0.0    # -0.0 -> +0.0 so the bit pattern orders like the value
         p = d.shape[1]
         key = ((d.view(torch.int32).to(torch.int64) << 32)

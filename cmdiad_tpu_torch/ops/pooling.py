@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cmdiad_tpu_torch import tracing
+
 
 @functools.lru_cache(maxsize=None)
 def _adaptive_avg_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -66,8 +68,8 @@ def _pool3x3_adaptive_matrix(n_in: int, n_out: int) -> np.ndarray:
 def _apply_separable(x: torch.Tensor, mh: np.ndarray,
                      mw: np.ndarray) -> torch.Tensor:
     """Apply (Ho, Hi) and (Wo, Wi) matrices to the H/W axes of (..., H, W, C)."""
-    mh_t = torch.from_numpy(mh).to(device=x.device, dtype=x.dtype)
-    mw_t = torch.from_numpy(mw).to(device=x.device, dtype=x.dtype)
+    mh_t = tracing.to_device(mh, x.device, x.dtype)
+    mw_t = tracing.to_device(mw, x.device, x.dtype)
     x = torch.einsum("oh,...hwc->...owc", mh_t, x)
     return torch.einsum("ow,...hwc->...hoc", mw_t, x)
 

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.ops.bank_min import bank_min_bf16, bank_min_int8
 from cmdiad_tpu_torch.ops.blur import knn_gaussian_blur, quantized_knn_gaussian_blur
 from cmdiad_tpu_torch.ops.pooling import bilinear_resize
@@ -54,7 +55,7 @@ def mask_padding_cols(d: torch.Tensor, n_valid, col_offset: int = 0):
     """Force distances to bank padding rows (index >= n_valid) to a huge
     value: under cos_dist a constant padding row could win the min."""
     cols = torch.arange(d.shape[-1], device=d.device) + col_offset
-    return torch.where(cols < n_valid, d, torch.tensor(_FAR, device=d.device))
+    return torch.where(cols < n_valid, d, tracing.to_device(_FAR, d.device))
 
 
 def bank_min_dist(patch: torch.Tensor, bank: torch.Tensor, metric: str = "l2",

@@ -1,0 +1,146 @@
+"""Spans and counters of the predict path, on the profiler's clock.
+
+Tracing is on exactly while a ``torch.profiler`` session records in this
+process (``cli detect --trace_dir``, the traced stretch of ``perfbench/``);
+there is no other switch.  When it is off, a span or a count costs a
+module-attribute read (a ``with span(...)`` also builds the span object:
+0.8 us on the card's host, where an idle ``record_function`` takes 10).
+
+* ``span(name)``, a context manager and a decorator, opens the profiler
+  range ``span.<name>``.  A range shares the device trace's clock, so the
+  kernels a span launched and the host gaps inside it can be read off the
+  same trace.
+* ``count(name, n)`` adds to a counter while tracing is on and a
+  ``predict_call`` is open: the counters hold the predict path alone, not
+  the fit a trace may also cover.  ``counters()`` returns the totals with
+  ``calls`` and ``images`` (counted at ``predict_call``), which a reader
+  divides by.
+* ``to_device`` and ``to_host`` are the predict path's host <-> device
+  copies.  Each is one blocking crossing (``host_syncs``) on a CUDA device;
+  ``to_device`` also counts the bytes it hands over (``h2d_bytes``).  A
+  site counts whatever the device, so a CPU run counts what the same call
+  makes a card do.
+
+The spans (``predict``, ``upload``, ``readback``, ``fps``, ``knn``,
+``group_encoder``, ``point_blocks``, ``regrid``) and the two counters are
+read by the per-layer metrics of ``perfbench/layer_metrics/`` and label the
+idle gaps of its breakdown.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+#: names of the spans the predict path opens
+SPANS = ("predict", "upload", "readback", "fps", "knn", "group_encoder",
+         "point_blocks", "regrid")
+
+_counts: Dict[str, int] = {}
+_open_calls = 0
+
+
+def enabled() -> bool:
+    """Whether a profiler session records in this process (the flag
+    ``torch.profiler.profile`` sets on entry and clears on exit)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class span:
+    """``with span("fps"): ...`` or ``@span("upload")``: the profiler
+    range ``span.<name>`` while tracing is on, nothing otherwise."""
+
+    __slots__ = ("label", "_range")
+
+    def __init__(self, name: str):
+        self.label = "span." + name
+        self._range = None
+
+    def __enter__(self):
+        if enabled():
+            self._range = torch.profiler.record_function(self.label)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        rng, self._range = self._range, None
+        if rng is not None:
+            rng.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        label = self.label
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not enabled():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+
+class predict_call(span):
+    """The ``predict`` span of one ``predict_batch`` over ``images``
+    parts: counts the call and its parts, and opens the counters."""
+
+    __slots__ = ("images", "_counting")
+
+    def __init__(self, images: int):
+        super().__init__("predict")
+        self.images = int(images)
+        self._counting = False
+
+    def __enter__(self):
+        global _open_calls
+        if enabled():
+            super().__enter__()
+            _open_calls += 1
+            self._counting = True
+            count("calls")
+            count("images", self.images)
+        return self
+
+    def __exit__(self, *exc):
+        global _open_calls
+        if self._counting:
+            _open_calls -= 1
+            self._counting = False
+        return super().__exit__(*exc)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while tracing is on inside a
+    ``predict_call``."""
+    if _open_calls and enabled():
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """The totals counted so far: ``calls``, ``images``, ``host_syncs``,
+    ``h2d_bytes`` (zero where nothing was counted) and any other counter."""
+    return {"calls": 0, "images": 0, "host_syncs": 0, "h2d_bytes": 0, **_counts}
+
+
+def reset_counters() -> None:
+    _counts.clear()
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype, device)`` of a host array or scalar:
+    one host sync and the result's bytes handed to the device."""
+    t = torch.as_tensor(x, dtype=dtype, device=device)
+    if _open_calls:
+        count("host_syncs")
+        count("h2d_bytes", t.numel() * t.element_size())
+    return t
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()`` inside a ``readback`` span: one host sync."""
+    with span("readback"):
+        count("host_syncs")
+        return t.cpu()

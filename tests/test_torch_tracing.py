@@ -1,0 +1,241 @@
+"""The port's spans and counters (``cmdiad_tpu_torch/tracing.py``).
+
+Both benchmark configurations' methods (``dual``, ``mtfi_ftof_xyz_main``)
+serve a random fitted state; on the CPU at the tiny widths:
+
+* with no profiler running, a ``predict_batch`` opens no profiler range and
+  counts nothing;
+* under ``torch.profiler`` every span of ``tracing.SPANS`` opens the
+  expected number of times, inside ``predict``;
+* ``h2d_bytes`` and ``host_syncs`` equal a hand sum of what the call
+  uploads and reads back, ``calls`` and ``images`` the batches and parts;
+* no span name is one that ``perfbench/spans.json`` wraps, and the
+  benchmark's readers of the counters read them (or nothing).
+
+On a card (``cuda``, skipped without one), at the configurations' full
+widths: ``host_syncs`` equals the synchronisations
+``torch.cuda.set_sync_debug_mode("warn")`` reports over one warm call, and
+the point path's sub-spans hold 90-100 % of ``xyz_patches``' device time.
+The file imports no JAX:
+
+    python -m pytest -q -s --noconftest tests/test_torch_tracing.py
+"""
+
+import collections
+import json
+import warnings
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cmdiad_tpu_torch import tracing
+from cmdiad_tpu_torch.config import method_preset
+from cmdiad_tpu_torch.methods.registry import build_backbone, build_fusion, build_method
+from cmdiad_tpu_torch.ops.blur import _blur_matrix
+from cmdiad_tpu_torch.ops.masked import host_compact_points
+from cmdiad_tpu_torch.ops.pooling import (_adaptive_avg_matrix, _bilinear_matrix,
+                                          _pool3x3_adaptive_matrix)
+from cmdiad_tpu_torch.ops.scoring import bank_nn_table
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PRESETS = ("dual", "mtfi_ftof_xyz_main")      # the benchmark's two configurations
+TINY = dict(rgb_backbone_name="tiny", xyz_backbone_name="tiny", rgb_size=64,
+            xyz_size=64, gt_size=64, num_group=32, group_size=16)
+XYZ_SPANS = ("fps", "knn", "group_encoder", "point_blocks", "regrid")
+BATCH = 3
+
+
+def _method(preset, device, rows, **overrides):
+    """The preset's method serving a random fitted state of ``rows`` rows a
+    scored bank (statistics (0, 1), unit fuser weights)."""
+    cfg = method_preset(preset, **overrides)
+    backbone = build_backbone(cfg, device)
+    method = build_method(cfg, backbone=backbone, fusion=build_fusion(cfg, backbone, device))
+    width = {"xyz": backbone.pm_config.out_dim, "rgb": backbone.vit_config.embed_dim,
+             "fusion": backbone.vit_config.embed_dim}
+    names = [m[0] for m in method._batch_modalities()]
+    gen = torch.Generator().manual_seed(0)
+    for n in names:
+        bank = torch.randn(rows, width[n], generator=gen).to(method.device)
+        method.banks[n], method.bank_sizes[n], method.stats[n] = bank, rows, (0.0, 1.0)
+        method.nn_tables[n] = bank_nn_table(bank, k=cfg.n_reweight, n_valid=rows,
+                                            metric=cfg.dist_method_s)
+    for f in (method.detect_fuser, method.seg_fuser):
+        f.load_weights(np.ones(len(names)), np.zeros(1))
+    return method
+
+
+def _batch(b, n, size, capacity, seed=0):
+    """A stacked batch of ``b`` rows, ``n`` of them parts, half their grid
+    points valid."""
+    rng = np.random.default_rng(seed)
+    pc = rng.normal(size=(b, size, size, 3)).astype(np.float32)
+    pc[rng.random((b, size, size)) < 0.5] = 0.0
+    return {"rgb": rng.normal(size=(b, size, size, 3)).astype(np.float32),
+            "organized_pc": pc,
+            "points_compact": np.stack([host_compact_points(p, capacity) for p in pc]),
+            "gt": np.zeros((b, size, size), np.float32), "label": np.zeros(b, np.int64),
+            "rgb_path": [f"part{i}.png" for i in range(b)], "_n": n}
+
+
+@pytest.fixture(scope="module", params=PRESETS)
+def tiny(request):
+    return request.param, _method(request.param, "cpu", 64, **TINY)
+
+
+def _expected(preset, method, batch):
+    """(host syncs, bytes uploaded) of one call, site by site."""
+    b, size, gt = batch["rgb"].shape[0], TINY["xyz_size"], TINY["gt_size"]
+    mats = []                                                  # constants, uploaded a call
+    uploads = [batch[k] for k in ("organized_pc", "points_compact")]
+    banks = [("xyz", 56)]
+    if preset == "dual":
+        uploads.insert(0, batch["rgb"])
+        g = method.backbone.vit_config.grid
+        mats += [_adaptive_avg_matrix(g, 56)] * 2              # rgb_patch2
+        banks.append(("rgb", g))
+    else:
+        banks.append(("fusion", 56))
+    mats += [_pool3x3_adaptive_matrix(size, 56)] * 2           # regrid
+    for _, side in banks:
+        mats += [_bilinear_matrix(side, gt)] * 2 + [_blur_matrix(gt, 4.0)] * 2
+    scalars = 4 * b                                            # the KNN's BIG_DIST, a part
+    fusers = 2 * 4 * len(banks)                                # two float32 weight vectors
+    nbytes = sum(a.nbytes for a in uploads) + sum(m.nbytes for m in mats) + scalars + fusers
+    syncs = len(uploads) + len(mats) + b + 2 + 2               # ... + fusers + readbacks
+    return syncs, nbytes
+
+
+def test_no_profiler_opens_no_range_and_counts_nothing(tiny, monkeypatch):
+    _, method = tiny
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: opened.append(a) or pytest.fail("range opened"))
+    before = tracing.counters()
+    assert not tracing.enabled()
+    method.predict_batch(_batch(BATCH, BATCH, 64, 2048))
+    method.reset_predictions()
+    assert opened == [] and tracing.counters() == before
+
+
+def _profiled(fn):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert tracing.enabled()
+        fn()
+    assert not tracing.enabled()
+    return [e for e in prof.events() if e.name.startswith("span.")]
+
+
+def test_spans_open_inside_predict(tiny):
+    _, method = tiny
+    events = _profiled(lambda: method.predict_batch(_batch(BATCH, BATCH, 64, 2048)))
+    method.reset_predictions()
+    seen = collections.Counter(e.name[len("span."):] for e in events)
+    assert seen == {"predict": 1, "upload": 1, "readback": 2, **dict.fromkeys(XYZ_SPANS, 1)}
+    (call,) = [e.time_range for e in events if e.name == "span.predict"]
+    for e in events:
+        assert call.start <= e.time_range.start <= e.time_range.end <= call.end, e.name
+
+
+def test_counters_are_the_hand_sum_of_what_a_call_moves(tiny):
+    preset, method = tiny
+    full, tail = _batch(BATCH, BATCH, 64, 2048, seed=1), _batch(BATCH, 1, 64, 2048, seed=2)
+    tracing.reset_counters()
+    _profiled(lambda: method.predict_batch(full))
+    syncs, nbytes = _expected(preset, method, full)
+    assert tracing.counters() == {"calls": 1, "images": BATCH, "host_syncs": syncs,
+                                  "h2d_bytes": nbytes}
+    _profiled(lambda: method.predict_batch(tail))              # padded: 1 part of 3 rows
+    assert tracing.counters() == {"calls": 2, "images": BATCH + 1, "host_syncs": 2 * syncs,
+                                  "h2d_bytes": 2 * nbytes}
+    assert len(method.image_preds) == BATCH + 1
+    method.reset_predictions()
+    tracing.reset_counters()
+
+
+def test_counting_stops_outside_a_predict_call():
+    tracing.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        tracing.to_device(np.zeros(4, np.float32), "cpu")
+        tracing.count("host_syncs")
+        with tracing.predict_call(2):
+            tracing.to_device(np.zeros(4, np.float32), "cpu")
+            tracing.to_host(torch.zeros(3))
+        tracing.count("host_syncs")
+    assert tracing.counters() == {"calls": 1, "images": 2, "host_syncs": 2, "h2d_bytes": 16}
+    tracing.reset_counters()
+
+
+def test_span_names_are_not_the_benchmarks_wrapped_names():
+    wrapped = set(json.loads((REPO / "perfbench" / "spans.json").read_text()))
+    assert len(set(tracing.SPANS)) == len(tracing.SPANS) == 8
+    assert not wrapped & set(tracing.SPANS)
+
+
+@pytest.mark.parametrize("metric, counts, value", [
+    ("host_syncs_per_call", {"calls": 4, "host_syncs": 108}, 27.0),
+    ("h2d_mb_per_image", {"images": 8, "h2d_bytes": 16_000_000}, 2.0),
+    ("host_syncs_per_call", {}, None),
+    ("h2d_mb_per_image", {}, None),
+])
+def test_benchmark_readers_of_the_counters(metric, counts, value, monkeypatch):
+    from perfbench.core import spec
+    monkeypatch.setattr(tracing, "_counts", dict(counts))
+    assert spec.reader(metric).read(None) == value
+    assert spec.reader(metric + ".b1").read(None) == value
+
+
+# ---------------------------------------------------------------- card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", PRESETS)
+def test_card_syncs_and_span_split(preset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cmdiad_tpu_torch.device import resolve_device
+    from perfbench.core import trace
+
+    dev = resolve_device("cuda")
+    method = _method(preset, dev, 8192)
+    batch = _batch(8, 8, 224, 32768, seed=3)
+    method.predict_batch(batch)                                # warm
+    torch.cuda.synchronize()
+    tracing.reset_counters()
+    caught = []
+
+    def call():
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                method.predict_batch(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        caught.extend(w)
+
+    spans = trace.Spans({"xyz_patches": "cmdiad_tpu_torch.models.backbone.DualBackbone.xyz_patches"})
+    spans.install()
+    try:
+        red = trace.reduce(trace.profile(call))
+    finally:
+        spans.remove()
+    # set_sync_debug_mode's own notice is not a synchronisation
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and Path(w.filename) != Path(torch.cuda.__file__)]
+    where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    c = tracing.counters()
+    xyz = red.span_device_s["xyz_patches"]
+    sub = {n: red.span_device_s.get(n, 0.0) for n in XYZ_SPANS}
+    print(json.dumps({"preset": preset, "counters": c, "sync_warnings": len(syncs),
+                      "where": dict(where), "xyz_patches_ms": 1e3 * xyz,
+                      "sub_ms": {n: 1e3 * v for n, v in sub.items()},
+                      "sub_share": sum(sub.values()) / xyz}))
+    assert c["calls"] == 1 and c["images"] == 8
+    assert c["host_syncs"] == len(syncs), where
+    assert all(0.0 < v <= xyz for v in sub.values()), sub
+    assert 0.9 * xyz <= sum(sub.values()) <= xyz * (1 + 1e-9), (sub, xyz)
