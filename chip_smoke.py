@@ -42,8 +42,8 @@ Phases:
      samples and evaluates the 8 test samples holding only the main
      modality's keys; the main and fusion banks hold rows and the other
      modality's none; evaluation launches only the main path's kernels (no
-     FPS or interpolation for FtoF/ItoF with the rgb main, FPS over every
-     point of the hallucinated 224² cloud for FtoI's rgb main); the fusion
+     FPS, KNN or interpolation for FtoF/ItoF with the rgb main, FPS and KNN
+     over every point of the hallucinated 224² cloud for FtoI's rgb main); the fusion
      net agrees with a CPU copy of it, and the card's predictions with the
      CPU's on the card's bank rows and hallucinated features;
   6. the throughput configuration's bfloat16 ViT-B/8 and Point-MAE at full
@@ -54,12 +54,12 @@ Phases:
      kernel against the same modules on the CPU, in float32; a backbone
      and a fusion net written to ``.pth`` files load back through
      ``rgb_ckpt_path``, ``xyz_ckpt_path`` and ``fusion_module_path`` to the
-     in-memory weights' outputs.  Phase 2 also holds FPS and the
+     in-memory weights' outputs.  Phase 2 also holds FPS, the KNN and the
      interpolation over a dense 50176-point cloud, and attention at DINOv2's 1370 and Point-BERT's 1025
      tokens against their plain versions;
   7. the MTFI lifecycle with training, at the same width: ``DINO+Point_MAE``
      fits and evaluates phase 3's samples writing the three feature stores
-     (FPS, interpolation and the bf16 bank-min launched, int8 bank-min and
+     (FPS, KNN, interpolation and the bf16 bank-min launched, int8 bank-min and
      attention not); each of the eight train methods trains 2 epochs at
      batch 8 from them (FtoFMlp also in bfloat16 and with
      ``accum_iter=2``), a checkpoint every epoch, and one step of each,
@@ -295,6 +295,49 @@ def check_fps(rng, dev, batch=8, capacity=32768, groups=1024, dense=False):
           f"{min(sizes[16]):.3f}-{max(sizes[16]):.3f} ms (three readings each)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def check_knn(rng, dev, batch=8, capacity=32768, groups=1024, k=128, dense=False):
+    """The KNN over parts as the benchmark's cells send them (12k-26k valid
+    points of a surface, a valid prefix of ``capacity`` slots), or with
+    ``dense`` over every point of a regressed 224² cloud (``capacity``
+    50176), around G centers from the FPS kernel."""
+    import torch
+    from cmdiad_tpu_torch.ops import fps, knn
+    from cmdiad_tpu_torch.ops.masked import nonzero_point_mask
+    from perfbench.core.parts import blob, compact
+    if dense:
+        pts = torch.from_numpy(
+            0.5 + 0.05 * rng.normal(size=(batch, capacity, 3)).astype(np.float32)).to(dev)
+    else:
+        pts = torch.from_numpy(np.stack([
+            compact(blob(rng, 224, rng.uniform(12000, 26000), i % 2 == 0)[0], capacity)
+            for i in range(batch)])).to(dev)
+    mask = nonzero_point_mask(pts)
+    centers, _ = fps.farthest_point_sample(pts, mask, groups)
+    ki = knn._knn_cuda(pts, mask, centers, k)
+    ki2 = knn._knn_cuda(pts, mask, centers, k)
+    pi = knn._knn_plain(pts, mask, centers, k)
+    torch.cuda.synchronize()
+    n_diff = int((ki != pi).sum())
+    assert n_diff == 0, f"KNN indices differ in {n_diff} places"
+    assert torch.equal(ki, ki2), "two KNN launches differ"
+    ms = _time_ms(lambda: knn._knn_cuda(pts, mask, centers, k), 10)
+    plain_ms = _time_ms(lambda: knn._knn_plain(pts, mask, centers, k), 2)
+    library_ms = _time_ms(lambda: torch.topk(torch.cdist(centers, pts), k, dim=2,
+                                             largest=False), 2)
+    n_valid = float(mask.sum())
+    # a pair: the cross term (3 mul, 2 add), the norms' add, the scaled
+    # subtraction (2), the clamp and the compare
+    ops = 10.0 * groups * n_valid
+    nbytes = batch * capacity * (12 + 1) + batch * groups * (12 + 8 * k)
+    bound_ms, bound_by = _bound(ops, PEAK_FP32, nbytes)
+    print(f"knn B={batch} P={capacity} G={groups} k={k} ({int(n_valid)} valid): "
+          f"indices identical, two launches identical; kernel with its wrapper "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, cdist+topk {library_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def check_interp(rng, dev, batch=8, size=224, groups=1024, d=768, dense=False):
@@ -570,15 +613,17 @@ KERNEL_ROWS = (
      "cmdiad_tpu/native/cmdiad_native.cc:268 dbscan (host C++)"),
     ("ocsvm_sgd", "ocsvm_sgd", "cmdiad_tpu_torch/csrc/ocsvm_sgd.cu",
      "cmdiad_tpu/fusion/ocsvm.py:78 _fit_jax (XLA scan)"),
+    ("masked_knn", "knn", "cmdiad_tpu_torch/csrc/knn.cu",
+     "cmdiad_tpu/ops/knn.py masked_knn (XLA top_k)"),
 )
 
 # the kernels each detection path must launch; the JSON row of a kernel
 # takes its launches from the first path listed here that runs it
 PATHS = {
-    "default": (dict(), ("bank_min", "fps", "interp")),
+    "default": (dict(), ("bank_min", "fps", "interp", "knn")),
     "throughput": (dict(compute_dtype="bfloat16", dist_method_s="l2_int8",
                         use_flash=True),
-                   ("bank_min_int8", "flash_attn", "fps", "interp")),
+                   ("bank_min_int8", "flash_attn", "fps", "interp", "knn")),
 }
 
 
@@ -603,6 +648,9 @@ def phase_kernels(dev):
     check_fps(rng, dev, batch=3)
     # FtoI rgb main: every point of the hallucinated 224² cloud
     check_fps(rng, dev, capacity=224 * 224, dense=True)
+    res["knn"] = check_knn(rng, dev)
+    check_knn(rng, dev, batch=1)
+    check_knn(rng, dev, capacity=224 * 224, dense=True)
     res["interp"] = check_interp(rng, dev)
     # FtoI rgb main: the regressed cloud, every one of its 50176 points valid
     check_interp(rng, dev, dense=True)
@@ -910,9 +958,9 @@ DISK_FIXTURE = dict(n_train=16, n_test_good=4, n_test_bad=4, n_test_color=2,
                     seed=SEED, anomaly_radius=(0.13, 0.18))
 # the kernels each method launches on the disk path, and those it must not
 METHOD_KERNELS = {
-    "DINO": (("bank_min",), ("fps", "interp")),
-    "Depth": (("bank_min",), ("fps", "interp")),
-    "Point_MAE": (("bank_min", "fps", "interp"), ()),
+    "DINO": (("bank_min",), ("fps", "interp", "knn")),
+    "Depth": (("bank_min",), ("fps", "interp", "knn")),
+    "Point_MAE": (("bank_min", "fps", "interp", "knn"), ()),
 }
 
 
@@ -981,7 +1029,7 @@ def phase_detect(card: str, memory_eval_ms: float, results_root: str) -> str:
         first, t_first, launches = _detect([*common, "--bank_cache_dir", cache,
                                             "--save_seg_results", "true"])
         print(f"detect DINO+Point_MAE launches {launches}")
-        for k in ("bank_min", "fps", "interp"):
+        for k in ("bank_min", "fps", "interp", "knn"):
             assert launches[k] > 0, f"{k} was not launched by detect"
         for cls, t in t_first.items():
             assert "bank_pass_s" in t and "bank_load_s" not in t, (cls, t)
@@ -1021,12 +1069,12 @@ def phase_detect(card: str, memory_eval_ms: float, results_root: str) -> str:
 # and those it must not; FtoI rgb main must also run FPS on every point of
 # its hallucinated 224² cloud
 MTFI_KERNELS = {
-    "mtfi_ftof_rgb_main": (("bank_min",), ("fps", "interp")),
-    "mtfi_itof_rgb_main": (("bank_min",), ("fps", "interp")),
-    "mtfi_ftoi_rgb_main": (("bank_min", "fps", "interp"), ()),
-    "mtfi_ftof_xyz_main": (("bank_min", "fps", "interp"), ()),
-    "mtfi_itof_xyz_main": (("bank_min", "fps", "interp"), ()),
-    "mtfi_ftoi_xyz_main": (("bank_min", "fps", "interp"), ()),
+    "mtfi_ftof_rgb_main": (("bank_min",), ("fps", "interp", "knn")),
+    "mtfi_itof_rgb_main": (("bank_min",), ("fps", "interp", "knn")),
+    "mtfi_ftoi_rgb_main": (("bank_min", "fps", "interp", "knn"), ()),
+    "mtfi_ftof_xyz_main": (("bank_min", "fps", "interp", "knn"), ()),
+    "mtfi_itof_xyz_main": (("bank_min", "fps", "interp", "knn"), ()),
+    "mtfi_ftoi_xyz_main": (("bank_min", "fps", "interp", "knn"), ()),
 }
 # the fusion net on the card against a copy on the CPU, same input, as a
 # share of the output's largest value: float32 summation order (a limit
@@ -1437,7 +1485,7 @@ def phase_train(dev, samples, card: str, profile=None):
         torch.cuda.synchronize()
         dump_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        for k in ("bank_min", "fps", "interp"):
+        for k in ("bank_min", "fps", "interp", "knn"):
             assert launches[k] > 0, f"the dumping run did not launch {k}"
         for k in ("bank_min_int8", "flash_attn"):
             assert launches[k] == 0, f"the dumping run launched {k}"
@@ -1537,7 +1585,7 @@ def phase_train(dev, samples, card: str, profile=None):
 # the argument of each kernel's C launcher that says what a rank gave it:
 # a bank-min kernel's bank rows, the other kernels' batch
 LAUNCH_SHAPE_ARG = {"bank_min": 4, "bank_min_int8": 6, "fps": 2, "interp": 5,
-                    "flash_attn": 4}
+                    "flash_attn": 4, "knn": 4}
 # phase 3's fitted states served on the mesh, and phase 8's own fits:
 # tag -> (path, Config overrides, serve phase 3's state (else fit))
 MULTI_RUNS = {
@@ -1552,10 +1600,10 @@ MULTI_RUNS = {
 # what each world-2 run must launch, and with which shape: data-parallel
 # runs extract 4 of the 8 test samples a rank, sharded banks hold 4096 of
 # the 8192 padded rows a rank
-MULTI_SHAPES = {"dp": {"bank_min": None, "fps": {4}, "interp": {4}},
+MULTI_SHAPES = {"dp": {"bank_min": None, "fps": {4}, "interp": {4}, "knn": {4}},
                 "dp_throughput": {"bank_min_int8": None, "fps": {4}, "interp": {4},
-                                  "flash_attn": {4}},
-                "shard": {"bank_min": {4096}, "fps": {8}, "interp": {8}},
+                                  "knn": {4}, "flash_attn": {4}},
+                "shard": {"bank_min": {4096}, "fps": {8}, "interp": {8}, "knn": {8}},
                 "shard_throughput": {"bank_min_int8": {4096}, "flash_attn": {8}}}
 # How phase 8's predictions are held to phase 3's (fixed before the first
 # run).  A data-parallel rank extracts 4 samples where phase 3 extracted 8,

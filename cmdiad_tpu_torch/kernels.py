@@ -36,9 +36,10 @@ _L, _F, _D = ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 # kernel -> (C entry point, argument types before the trailing stream,
 #            extra nvcc flags).  FPS, the interpolation and DBSCAN keep
 #            their distance arithmetic free of FMA contraction so that their
-#            selections match the plain versions exactly, and the OCSVM
-#            steps round every operation as JAX does (the int8 bank-min
-#            rounds each operation with intrinsics instead).
+#            selections match the plain versions exactly (the KNN writes
+#            its one contraction, cuBLAS's, as fmaf), and the OCSVM steps
+#            round every operation as JAX does (the int8 bank-min rounds
+#            each operation with intrinsics instead).
 _KERNELS = {
     "fps": ("fps_launch", (_P, _P, _I, _I, _I, _I, _P), ("--fmad=false",)),
     "interp": ("three_nn_interp_launch",
@@ -54,6 +55,8 @@ _KERNELS = {
                ("--fmad=false",)),
     "ocsvm_sgd": ("ocsvm_sgd_launch", (_P, _L, _I, _F, _F, _F, _P),
                   ("--fmad=false",)),
+    "knn": ("knn_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+            ("--fmad=false",)),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNELS}

@@ -7,9 +7,10 @@ port's dependencies (the multi-device cases spawn their ranks with
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-FPS, the interpolation, the int8 bank min/argmin and the OCSVM steps must
-match their plain versions exactly (same float32 operations in the same
-order, no FMA; the int8 product is exact); the bfloat16 bank min/argmin may differ only
+FPS, the KNN, the interpolation, the int8 bank min/argmin and the OCSVM
+steps must match their plain versions exactly (same float32 operations in
+the same order, no FMA but the KNN's cross term, written as cuBLAS rounds
+it; the int8 product is exact); the bfloat16 bank min/argmin may differ only
 where two bank rows tie to float32 summation order, the fused attention
 and the bfloat16 probe product to float32 summation order.
 """
@@ -24,6 +25,7 @@ from cmdiad_tpu_torch.ops import flash_attn as fa
 from cmdiad_tpu_torch.ops import fps
 from cmdiad_tpu_torch.ops import int8_dot as i8
 from cmdiad_tpu_torch.ops import interpolate as ip
+from cmdiad_tpu_torch.ops import knn
 from cmdiad_tpu_torch.ops.masked import nonzero_point_mask
 
 pytestmark = pytest.mark.cuda
@@ -133,6 +135,84 @@ def test_fps_kernel_matches_plain_on_a_dense_hallucinated_cloud(dev, rng, b):
     want = fps._fps_plain(pts, mask, g)
     for clusters in (0, 8, 16):
         assert torch.equal(fps._fps_cuda(pts, mask, g, clusters=clusters), want)
+
+
+def _surface_parts(rng, b, p=32768):
+    """b parts as the benchmark's cells send them: surface-like blobs of
+    12k-26k valid points, compacted to a valid prefix of p slots."""
+    from perfbench.core.parts import blob, compact
+    return torch.from_numpy(np.stack([
+        compact(blob(rng, 224, rng.uniform(12000, 26000), i % 2 == 0)[0], p)
+        for i in range(b)]))
+
+
+def _knn_case(rng, case):
+    """-> (points (B, P, 3), mask, k) of one KNN case."""
+    if case in ("cells_b8", "cells_b1", "k8", "k16"):
+        b = {"cells_b8": 8, "cells_b1": 1}.get(case, 2)
+        k = {"k8": 8, "k16": 16}.get(case, 128)
+        pts = _surface_parts(rng, b)
+    elif case == "dense":                        # FtoI rgb main's regressed cloud
+        pts = torch.from_numpy(
+            0.5 + 0.05 * rng.normal(size=(2, 224 * 224, 3)).astype(np.float32))
+        k = 128
+    elif case == "fewer_than_k":                 # 100 valid, then none valid
+        pts = torch.from_numpy(rng.normal(size=(2, 4096, 3)).astype(np.float32))
+        pts[0, 100:] = 0.0
+        pts[1] = 0.0
+        k = 128
+    elif case == "ties":                         # every distance equal
+        pts = torch.full((2, 4096, 3), 0.25)
+        pts[1, ::3] = 0.0
+        k = 128
+    elif case == "not_prefix":                   # valid points scattered
+        pts = torch.from_numpy(rng.normal(size=(2, 20000, 3)).astype(np.float32))
+        pts[torch.from_numpy(rng.random((2, 20000)) < 0.6)] = 0.0
+        k = 128
+    else:                                        # k up to the kernel's limit
+        pts = _surface_parts(rng, 2)
+        k = {"k200": 200, "k256": knn.MAX_K}[case]
+    return pts, nonzero_point_mask(pts), k
+
+
+@pytest.mark.parametrize("case", ["cells_b8", "cells_b1", "dense", "k8", "k16",
+                                  "fewer_than_k", "ties", "not_prefix", "k200",
+                                  "k256"])
+def test_knn_kernel_matches_plain(dev, rng, case):
+    """masked_knn on the card (one kernel launch) equals _knn_plain on the
+    same CUDA tensors, index for index: the cells' shape (B 8 and 1, 12k-26k
+    valid of 32768, G 1024 from the FPS kernel), the dense 50176-point
+    cloud, small k, fewer valid points than k (the tail takes the first
+    valid point; an all-invalid part gives index 0), all-equal distances
+    (ties to the lower index), a mask that is not a prefix, and k up to
+    MAX_K.  Two launches give the same indices."""
+    pts, mask, k = _knn_case(rng, case)
+    pts, mask = pts.to(dev), mask.to(dev)
+    if case in ("fewer_than_k", "ties", "not_prefix"):
+        centers = pts[:, :64] + 0.01
+    else:
+        centers, _ = fps.farthest_point_sample(pts, mask, 1024)
+    before = kernels.LAUNCHES["knn"]
+    got = knn.masked_knn(pts, mask, centers, k)
+    assert kernels.LAUNCHES["knn"] == before + 1
+    want = knn._knn_plain(pts, mask, centers, k)
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(knn.masked_knn(pts, mask, centers, k), got)
+    if case == "ties":
+        valid = torch.nonzero(mask[1])[:, 0]
+        assert torch.equal(got[1], valid[:k].expand_as(got[1]))
+    if case == "fewer_than_k":
+        assert bool((got[0][:, 100:] == 0).all()) and bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("k", [0, knn.MAX_K + 1, 301])
+def test_knn_wrapper_rejects_what_the_kernel_does_not_take(dev, k):
+    """k outside 1..min(MAX_K, P) raises before any launch (P 300 here)."""
+    pts = torch.ones((1, 300, 3), device=dev)
+    before = kernels.LAUNCHES["knn"]
+    with pytest.raises(ValueError, match="KNN kernel takes k"):
+        knn.masked_knn(pts, nonzero_point_mask(pts), pts[:, :4], k)
+    assert kernels.LAUNCHES["knn"] == before
 
 
 def _interp_inputs(rng, dev, b=2, p=5000, g=256, d=96):
@@ -407,8 +487,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
         i8.int8_dot(a, torch.zeros((64, 128), device=dev, dtype=torch.int8))
 
 
-DETECTION_KERNELS = {"": ("bank_min", "fps", "interp"),
-                     "throughput": ("bank_min_int8", "flash_attn", "fps", "interp")}
+DETECTION_KERNELS = {"": ("bank_min", "fps", "interp", "knn"),
+                     "throughput": ("bank_min_int8", "flash_attn", "fps", "interp", "knn")}
 
 
 @pytest.mark.parametrize("path", ["", "throughput"])
@@ -472,7 +552,7 @@ def test_small_double_method_on_the_card(dev, path):
     assert np.abs(maps_gpu - maps_cpu).mean() <= tol[2] * scale
 
 
-MTFI_KERNELS = {"mtfi_ftof_xyz_main": {"bank_min", "fps", "interp"},
+MTFI_KERNELS = {"mtfi_ftof_xyz_main": {"bank_min", "fps", "interp", "knn"},
                 "mtfi_itof_rgb_main": {"bank_min"}}
 
 

@@ -88,6 +88,23 @@ def test_masked_knn_ties_take_lower_index():
         method="exact"))[0, 0])
 
 
+def test_knn_kernel_input_carries_the_plain_norms(rng):
+    """What the KNN kernel streams: each point as (x, y, z, |p|^2) with the
+    norm ``pairwise_sqdist`` adds, bit for bit, and -1 in place of it for a
+    masked point (no valid norm is negative, +0.0 included)."""
+    pts = rng.normal(size=(2, 300, 3)).astype(np.float32)
+    pts[:, 0] = 0.0
+    mask = np.all(pts != 0, -1)
+    mask[1, 0] = True                               # a valid point at the origin
+    packed = knn._packed(_t(pts), _t(mask))
+    assert packed.shape == (2, 300, 4) and packed.is_contiguous()
+    np.testing.assert_array_equal(packed[..., :3].numpy(), pts)
+    p2 = torch.sum(_t(pts) * _t(pts), dim=-1)
+    w = packed[..., 3]
+    assert torch.equal(w[_t(mask)].view(torch.int32), p2[_t(mask)].view(torch.int32))
+    assert bool((w[~_t(mask)] == -1.0).all()) and float(w[1, 0]) == 0.0
+
+
 # ------------------------------------------------------ pooling / blur ---
 
 @pytest.mark.parametrize("fn,out", [("adaptive_avg_pool", 7), ("bilinear_resize", 40),

@@ -14,8 +14,9 @@ serve a random fitted state; on the CPU at the tiny widths:
 
 On a card (``cuda``, skipped without one), at the configurations' full
 widths: ``host_syncs`` equals the synchronisations
-``torch.cuda.set_sync_debug_mode("warn")`` reports over one warm call, and
-the point path's sub-spans hold 90-100 % of ``xyz_patches``' device time.
+``torch.cuda.set_sync_debug_mode("warn")`` reports over one warm call, the
+call launches FPS and the KNN once each, and the point path's sub-spans
+hold 90-100 % of ``xyz_patches``' device time.
 The file imports no JAX:
 
     python -m pytest -q -s --noconftest tests/test_torch_tracing.py
@@ -30,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from cmdiad_tpu_torch import tracing
+from cmdiad_tpu_torch import kernels, tracing
 from cmdiad_tpu_torch.config import method_preset
 from cmdiad_tpu_torch.methods.registry import build_backbone, build_fusion, build_method
 from cmdiad_tpu_torch.ops.blur import _blur_matrix
@@ -89,7 +90,7 @@ def tiny(request):
 
 def _expected(preset, method, batch):
     """(host syncs, bytes uploaded) of one call, site by site."""
-    b, size, gt = batch["rgb"].shape[0], TINY["xyz_size"], TINY["gt_size"]
+    size, gt = TINY["xyz_size"], TINY["gt_size"]
     mats = []                                                  # constants, uploaded a call
     uploads = [batch[k] for k in ("organized_pc", "points_compact")]
     banks = [("xyz", 56)]
@@ -103,10 +104,9 @@ def _expected(preset, method, batch):
     mats += [_pool3x3_adaptive_matrix(size, 56)] * 2           # regrid
     for _, side in banks:
         mats += [_bilinear_matrix(side, gt)] * 2 + [_blur_matrix(gt, 4.0)] * 2
-    scalars = 4 * b                                            # the KNN's BIG_DIST, a part
     fusers = 2 * 4 * len(banks)                                # two float32 weight vectors
-    nbytes = sum(a.nbytes for a in uploads) + sum(m.nbytes for m in mats) + scalars + fusers
-    syncs = len(uploads) + len(mats) + b + 2 + 2               # ... + fusers + readbacks
+    nbytes = sum(a.nbytes for a in uploads) + sum(m.nbytes for m in mats) + fusers
+    syncs = len(uploads) + len(mats) + 2 + 2                   # ... + fusers + readbacks
     return syncs, nbytes
 
 
@@ -206,6 +206,7 @@ def test_card_syncs_and_span_split(preset):
     method.predict_batch(batch)                                # warm
     torch.cuda.synchronize()
     tracing.reset_counters()
+    kernels.reset_launches()
     caught = []
 
     def call():
@@ -237,5 +238,7 @@ def test_card_syncs_and_span_split(preset):
                       "sub_share": sum(sub.values()) / xyz}))
     assert c["calls"] == 1 and c["images"] == 8
     assert c["host_syncs"] == len(syncs), where
+    # the whole batch is grouped through one FPS and one KNN launch
+    assert kernels.LAUNCHES["fps"] == kernels.LAUNCHES["knn"] == 1, kernels.LAUNCHES
     assert all(0.0 < v <= xyz for v in sub.values()), sub
     assert 0.9 * xyz <= sum(sub.values()) <= xyz * (1 + 1e-9), (sub, xyz)
