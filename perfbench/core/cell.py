@@ -3,9 +3,10 @@ the check, the result.
 
 Set-up makes the pool and the weights from the seed, builds the fitted
 state with the reference on the card and writes it in the port's npz
-layout; then it builds the port as a line does (``build_backbone``, the
-checkpoints through ``models.convert``, ``build_fusion``, a
-``CMDIADRunner`` whose ``fit`` serves the state from ``bank_cache_dir``)
+layout; then it builds the port as a line does (``build_backbone``,
+``build_fusion``, its sizes checked against the configuration's, each
+model's checkpoint loaded as its file in ``perfbench/model_parts/`` says,
+a ``CMDIADRunner`` whose ``fit`` serves the state from ``bank_cache_dir``)
 and warms the cell's own shapes up with a few calls.  ``setup_s`` runs
 from the process's start to the first timed call.  After the window the
 program is freed and the reference checks the sampled answers.
@@ -62,26 +63,23 @@ def card_name_and_power() -> str:
         return "unknown"
 
 
-def _check_shapes(config: dict, backbone, fusion) -> None:
-    """The program runs the configuration's widths and depths."""
-    v, p = backbone.vit_config, backbone.pm_config
-    want = {**{f"vit.{k}": config["vit"][k] for k in (
-                "img_size", "patch_size", "embed_dim", "depth", "num_heads", "mlp_ratio",
-                "qkv_bias", "ln_eps")},
-            **{f"point_mae.{k}": config["point_mae"][k] for k in (
-                "num_group", "group_size", "encoder_dims", "trans_dim", "depth", "num_heads",
-                "mlp_ratio", "ln_eps")}}
-    have = {**{f"vit.{k}": getattr(v, k) for k in (
-                "img_size", "patch_size", "embed_dim", "depth", "num_heads", "mlp_ratio",
-                "qkv_bias", "ln_eps")},
-            **{f"point_mae.{k}": getattr(p, k) for k in (
-                "num_group", "group_size", "encoder_dims", "trans_dim", "depth", "num_heads",
-                "mlp_ratio", "ln_eps")}}
-    have["point_mae.fetch_idx"] = list(p.fetch_idx)
-    want["point_mae.fetch_idx"] = list(config["point_mae"]["fetch_idx"])
-    if fusion is not None and "ftof_mlp" in config:
-        have["ftof_mlp.hidden"] = fusion.xyz_mlp.mlp_module[0].fc1.out_features
-        want["ftof_mlp.hidden"] = config["ftof_mlp"]["hidden"]
+def _plain(v):
+    return list(v) if isinstance(v, tuple) else v
+
+
+def _check_shapes(config: dict, cfg, backbone, fusion) -> None:
+    """The program runs the configuration's sides and, for each of its
+    models, every width of the model's block (its part's ``NOT_WIDTHS``
+    left out): the backbone holds the sizes of both backbones, also of one
+    the window does not run."""
+    want = {k: config[k] for k in ("rgb_size", "xyz_size", "gt_size")}
+    have = {k: getattr(cfg, k) for k in want}
+    for m in config["models"]:
+        part = spec.model_part(m)
+        runs = part.widths(backbone, fusion)
+        for k, v in config[m].items():
+            if k not in part.NOT_WIDTHS:
+                want[f"{m}.{k}"], have[f"{m}.{k}"] = v, _plain(runs.get(k, "not run"))
     diff = {k: (want[k], have[k]) for k in want if want[k] != have[k]}
     if diff:
         raise ValueError(f"the program runs other sizes than the configuration: {diff}")
@@ -103,7 +101,6 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device="cuda",
     from cmdiad_tpu_torch.config import method_preset
     from cmdiad_tpu_torch.data.loader import stack_batches
     from cmdiad_tpu_torch.methods.registry import build_backbone, build_fusion
-    from cmdiad_tpu_torch.models import convert
     from cmdiad_tpu_torch.runner import CMDIADRunner
 
     t0 = time.time() if t0 is None else t0
@@ -112,14 +109,15 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device="cuda",
     config, traffic = cell.config, cell.traffic
     seed = int(seed) % (2 ** 63)
     if traffic["size"] != config["xyz_size"]:
-        raise ValueError(f"traffic size {traffic['size']} != configuration {config['xyz_size']}")
+        raise ValueError(f"traffic size {traffic['size']} != the cloud's side {config['xyz_size']}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if cuda:
         kernels.build_all()
     phases = {"kernels": time.time() - t0}
 
-    pool = parts.make_parts(seed, traffic["pool"], traffic, traffic["defect_share"], "pool")
+    pool = parts.make_parts(seed, traffic["pool"], traffic, traffic["defect_share"], "pool",
+                            config["rgb_size"])
     phases["pool"] = time.time() - t0
     made = {m: W.make(m, config[m], seed, dev, i) for i, m in enumerate(config["models"])}
     phases["weights"] = time.time() - t0
@@ -131,14 +129,10 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device="cuda",
         **config["overrides"], **(overrides or {}), "batch_size": traffic["batch"],
         "bank_cache_dir": str(CACHE / "state")})
     backbone = build_backbone(cfg, dev)
-    if "vit" in config["program_models"]:
-        convert.load_named(backbone.vit, made["vit"].numpy)
-    if "point_mae" in config["program_models"]:
-        convert.load_named(backbone.point, convert.strip_pointmae_prefixes(made["point_mae"].numpy))
     fusion = build_fusion(cfg, backbone, dev)
-    if "ftof_mlp" in config["program_models"]:
-        convert.load_reference_state(fusion, made["ftof_mlp"].numpy)
-    _check_shapes(config, backbone, fusion)
+    _check_shapes(config, cfg, backbone, fusion)
+    for m in config["program_models"]:
+        spec.model_part(m).load(backbone, fusion, made[m].numpy)
     runner = CMDIADRunner(cfg, backbone=backbone, device=dev, fusion=fusion)
     method = runner.method
     phases["program"] = time.time() - t0

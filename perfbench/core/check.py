@@ -28,7 +28,7 @@ import torch
 
 from perfbench.core import state as state_mod
 from perfbench.core.state import State
-from perfbench.reference import ftof_mlp, fuse, scoring
+from perfbench.reference import fuse, scoring
 
 _TINY = 1e-30
 
@@ -46,8 +46,7 @@ def reference_answers(config: dict, weights: dict, state: State, parts: Dict[int
                       device, block: int = 4) -> Dict[int, dict]:
     """pool index -> {"banks": [per bank ``scoring.score``], "fused": the
     same fused through the two fusers}."""
-    sds = {m: w.on(device) for m, w in weights.items()}
-    sds["point_mae"] = state_mod.strip(sds["point_mae"], "MAE_encoder.")
+    sds = state_mod.state_dicts(weights, device)
     banks = {n: torch.as_tensor(b, device=device) for n, b in state.banks.items()}
     nns = {n: torch.as_tensor(t, device=device) for n, t in state.nn.items()}
     gt = config["gt_size"]
@@ -55,11 +54,9 @@ def reference_answers(config: dict, weights: dict, state: State, parts: Dict[int
     idx = sorted(parts)
     for s in range(0, len(idx), block):
         chunk = idx[s:s + block]
-        feats = dict(zip(("rgb", "xyz"), state_mod.reference_features(
-            config, sds, [parts[i] for i in chunk], device)))
-        if "fusion" in state.scored:
-            feats["fusion"] = ftof_mlp.generate(sds["ftof_mlp"], feats["xyz"], "xyz",
-                                                config["ftof_mlp"]["ln_eps"])
+        feats = state_mod.reference_features(config, sds, [parts[i] for i in chunk], device)
+        feats.update(state_mod.features(config, sds, feats,
+                                        [r for r in state.scored if r not in feats]))
         for j, i in enumerate(chunk):
             per = []
             for name in state.scored:

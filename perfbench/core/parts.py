@@ -8,13 +8,26 @@ the valid-point range, the point capacity.  Every seed draws the same set
 of valid-point counts and the same number of dented parts, in another
 order, so that the seed changes which part comes when and not how much
 work a pass holds.
+
+The traffic's ``size`` is the cloud's side; the RGB image has a side of
+its own, the configuration's ``rgb_size`` (by default the cloud's).  The
+image is drawn at the cloud's side as uint8; where the two sides differ,
+that uint8 image is resized to ``rgb_size`` by torch's antialiased
+bicubic (``F.interpolate``, the a = -0.5 weights of PIL's BICUBIC, in one
+float32 pass where PIL rounds between two), rounded and clipped back to
+uint8, and only then normalised with ImageNet's mean and std, as M3DM
+resizes a camera image to its ViT's side.  The resize draws nothing from the
+generator, so every other array of a part is the same at either side, and
+where the sides are equal the image is what it was without the key.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -53,12 +66,25 @@ def blob(rng: np.random.Generator, size: int, n_valid: float, dent: bool,
     return pc, gt, inside
 
 
-def rgb_from_pc(rng: np.random.Generator, pc, inside, size: int) -> np.ndarray:
-    """ImageNet-normalised (size, size, 3) float32 image of the blob."""
+def resize_bicubic(img: np.ndarray, side: int) -> np.ndarray:
+    """(H, W, 3) uint8 -> (side, side, 3) uint8, antialiased bicubic."""
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].to(torch.float32)
+    y = F.interpolate(x, size=(side, side), mode="bicubic", align_corners=False,
+                      antialias=True)
+    return y.round().clamp(0, 255).to(torch.uint8)[0].permute(1, 2, 0).numpy()
+
+
+def rgb_from_pc(rng: np.random.Generator, pc, inside, size: int,
+                rgb_size: int) -> np.ndarray:
+    """ImageNet-normalised (rgb_size, rgb_size, 3) float32 image of the
+    blob, drawn at the cloud's side ``size``."""
     img = np.zeros((size, size, 3), np.float32)
     img[inside] = np.stack([pc[inside, 2]] * 3, -1) * 255 * 1.2
     img += rng.uniform(0, 20, img.shape)
-    rgb = np.clip(img, 0, 255).astype(np.uint8).astype(np.float32) / 255.0
+    u8 = np.clip(img, 0, 255).astype(np.uint8)
+    if rgb_size != size:
+        u8 = resize_bicubic(u8, rgb_size)
+    rgb = u8.astype(np.float32) / 255.0
     return (rgb - IMAGENET_MEAN) / IMAGENET_STD
 
 
@@ -76,12 +102,14 @@ def compact(pc: np.ndarray, capacity: int) -> np.ndarray:
 
 
 def make_parts(seed: int, n: int, traffic: dict, defect_share: float,
-               tag: str) -> List[Dict]:
+               tag: str, rgb_size: Optional[int] = None) -> List[Dict]:
     """``n`` parts from ``seed``: the sample dicts the port's loader gives
     (``rgb``, ``organized_pc``, ``points_compact``, ``gt``, ``label``,
-    ``rgb_path``), ``round(n * defect_share)`` of them dented."""
+    ``rgb_path``), ``round(n * defect_share)`` of them dented; the image at
+    ``rgb_size`` (the traffic's ``size`` when None)."""
     rng = np.random.default_rng([seed, len(tag), sum(map(ord, tag))])
     size, cap = traffic["size"], traffic["point_capacity"]
+    rgb_size = size if rgb_size is None else rgb_size
     lo, hi = traffic["valid_points"]
     counts = rng.permutation(_valid_counts(n, lo, hi))
     n_bad = int(round(n * defect_share))
@@ -89,7 +117,7 @@ def make_parts(seed: int, n: int, traffic: dict, defect_share: float,
     parts = []
     for i in range(n):
         pc, gt, inside = blob(rng, size, counts[i], bool(dents[i]))
-        parts.append({"rgb": rgb_from_pc(rng, pc, inside, size),
+        parts.append({"rgb": rgb_from_pc(rng, pc, inside, size, rgb_size),
                       "organized_pc": pc,
                       "points_compact": compact(pc, cap),
                       "gt": gt,

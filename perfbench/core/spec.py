@@ -6,8 +6,11 @@ configuration is ``perfbench/configs/<config>.json``, its traffic
 ``perfbench/limits/<cell>.json``.  A per-layer metric ``m`` is read by
 ``perfbench/layer_metrics/<m>.py`` (a metric split by cells, ``<m>.<split>``,
 by its base's file when it has none of its own), a model part's counts live in
-``perfbench/counts/<part>.py``.  Adding a cell, a configuration, a metric
-or a count is adding files: nothing here names one.
+``perfbench/counts/<part>.py``, and a model that a configuration lists in
+``models`` is ``perfbench/model_parts/<model>.py`` (its weights, plain
+reference, loading into the port and widths).  Adding a cell, a
+configuration, a metric, a count or a model part is adding files: nothing
+here names one.
 """
 
 from __future__ import annotations
@@ -63,8 +66,11 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
 
 
 def load_config(name: str, directory: Optional[Path] = None) -> dict:
+    """A configuration; the RGB image's side ``rgb_size`` defaults to the
+    cloud's ``xyz_size``."""
     cfg = _json((directory or BENCH_DIR / "configs") / f"{name}.json")
     cfg.setdefault("name", name)
+    cfg.setdefault("rgb_size", cfg["xyz_size"])
     return cfg
 
 
@@ -100,3 +106,9 @@ def base_name(metric: str, known) -> str:
 
 def count(part: str) -> ModuleType:
     return importlib.import_module(f"perfbench.counts.{part}")
+
+
+def model_part(model: str) -> ModuleType:
+    """The model part ``perfbench/model_parts/<model>.py``
+    (``perfbench/model_parts/__init__.py`` gives what it holds)."""
+    return importlib.import_module(f"perfbench.model_parts.{model}")

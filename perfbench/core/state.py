@@ -24,11 +24,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from perfbench.core import parts as parts_mod
-from perfbench.reference import ftof_mlp, point_mae, vit
+from perfbench.core import parts as parts_mod, spec
 
 PAD_ROWS = 8192        # the port's persisted layout pads banks to this bucket
 PAD_VALUE = 1e6        # with rows of this value
+PART_INPUTS = ("rgb", "organized_pc", "points_compact")   # what a backbone reads of a part
 
 
 @dataclass
@@ -45,13 +45,30 @@ def strip(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
+def state_dicts(weights: dict, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Each model's weights on ``device`` as its reference reads them, the
+    checkpoint prefix stripped."""
+    return {m: strip(w.on(device), spec.model_part(m).CHECKPOINT_PREFIX)
+            for m, w in weights.items()}
+
+
+def features(config: dict, sds: dict, inputs: dict, roles) -> Dict[str, torch.Tensor]:
+    """role -> the reference's features of the model of that role, for
+    each of ``config``'s models whose role is in ``roles``, in the order of
+    ``models``; ``inputs`` as ``model_parts`` says."""
+    out = {}
+    for m in config["models"]:
+        part = spec.model_part(m)
+        if part.ROLE in roles:
+            out[part.ROLE] = part.features(sds[m], inputs, config[m])
+    return out
+
+
 def reference_features(config: dict, sds: dict, block: List[dict], device):
-    """Reference rgb and xyz patch features of a block of parts."""
-    t = lambda key: torch.as_tensor(np.stack([p[key] for p in block]), device=device)
-    rgb = vit.patches(sds["vit"], t("rgb"), config["vit"])
-    xyz = point_mae.patches(sds["point_mae"], t("organized_pc"), t("points_compact"),
-                            config["point_mae"])
-    return rgb, xyz
+    """role -> the reference backbones' patch features of a block of parts."""
+    inputs = {k: torch.as_tensor(np.stack([p[k] for p in block]), device=device)
+              for k in PART_INPUTS}
+    return features(config, sds, inputs, ("rgb", "xyz"))
 
 
 def nn_table(bank: torch.Tensor, k: int = 3, chunk: int = 2048) -> torch.Tensor:
@@ -73,15 +90,14 @@ def nn_table(bank: torch.Tensor, k: int = 3, chunk: int = 2048) -> torch.Tensor:
 
 def build(config: dict, traffic: dict, weights: dict, seed: int, device) -> State:
     rng = np.random.default_rng([seed, 4242])
-    sds = {m: w.on(device) for m, w in weights.items()}
-    sds["point_mae"] = strip(sds["point_mae"], "MAE_encoder.")
-    train = parts_mod.make_parts(seed, config["bank_parts"], traffic, 0.0, "train")
-    rgb, xyz = [], []
+    sds = state_dicts(weights, device)
+    train = parts_mod.make_parts(seed, config["bank_parts"], traffic, 0.0, "train",
+                                 config["rgb_size"])
+    rows: Dict[str, list] = {}
     for s in range(0, len(train), 8):
-        r, x = reference_features(config, sds, train[s:s + 8], device)
-        rgb.append(r.reshape(-1, r.shape[-1]))
-        xyz.append(x.reshape(-1, x.shape[-1]))
-    rgb, xyz = torch.cat(rgb), torch.cat(xyz)
+        for role, f in reference_features(config, sds, train[s:s + 8], device).items():
+            rows.setdefault(role, []).append(f.reshape(-1, f.shape[-1]))
+    rgb, xyz = torch.cat(rows.pop("rgb")), torch.cat(rows.pop("xyz"))
     mean, std = float(xyz.double().mean()), float(rgb.double().std())
     want = config["banks"]
     object_rows = torch.nonzero(torch.amax(torch.abs(xyz), 1) > 0)[:, 0].cpu().numpy()
@@ -98,9 +114,7 @@ def build(config: dict, traffic: dict, weights: dict, seed: int, device) -> Stat
     if "rgb" in want:
         raw["rgb"] = rgb[torch.as_tensor(np.sort(rng.choice(
             rgb.shape[0], want["rgb"]["rows"], replace=False)), device=device)]
-    if "fusion" in want:
-        raw["fusion"] = ftof_mlp.generate(sds["ftof_mlp"], raw["xyz"], "xyz",
-                                          config["ftof_mlp"]["ln_eps"])
+    raw.update(features(config, sds, raw, [r for r in want if r not in raw]))
     scored = list(want)
     banks, nn = {}, {}
     for name in scored:

@@ -2,7 +2,8 @@
 
 The ``cuda`` marker labels tests that need the card: each of them decides
 inside itself whether one is present and skips otherwise.  ``tiny_cell``
-builds a cell from the CPU test sizes in ``data/``.
+builds a cell from the CPU test sizes in ``data/`` (or a configuration in
+another directory).
 """
 
 import json
@@ -22,12 +23,12 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "cuda: needs an NVIDIA card; skips without one")
 
 
-def tiny_cell(config_name: str, **traffic):
+def tiny_cell(config_name: str, directory: Path = DATA, **traffic):
     from perfbench.core import spec
     t = json.loads((DATA / "tiny_traffic.json").read_text())
     t.update(traffic)
     return spec.Cell(
-        name=config_name, config=spec.load_config(config_name, DATA), traffic=t,
+        name=config_name, config=spec.load_config(config_name, directory), traffic=t,
         limits=json.loads((DATA / "tiny_limits.json").read_text()),
         per_layer=[], end_to_end=spec.load_cell("dino_pointmae.b8").end_to_end)
 

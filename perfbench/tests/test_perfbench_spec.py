@@ -48,6 +48,12 @@ def test_every_cell_finds_its_files(cell):
         assert callable(spec.reader(m["name"]).read)
     for e in c.config["step"]:
         assert callable(spec.count(e["part"]).least_s_per_image)
+    assert set(c.config["program_models"]) <= set(c.config["models"])
+    for m in c.config["models"]:
+        part = spec.model_part(m)
+        assert part.ROLE in ("rgb", "xyz", "fusion") and isinstance(part.CHECKPOINT_PREFIX, str)
+        assert "source" in part.NOT_WIDTHS and all(
+            callable(getattr(part, f)) for f in ("leaves", "features", "load", "widths"))
 
 
 def test_config_files_hold_the_published_widths():
