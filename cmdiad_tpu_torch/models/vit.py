@@ -1,4 +1,4 @@
-"""Vision Transformer (ViT-B/8 DINO, ViT-B/14 DINOv2) in PyTorch.
+"""Vision Transformer (ViT-B/8 DINO, ViT-B/14 and ViT-L/14-reg4 DINOv2) in PyTorch.
 
 The RGB backbone of the reference (timm ``vit_base_patch8_224_dino`` run
 as patch_embed -> pos_embed -> 12 blocks -> norm, the patch tokens
@@ -14,6 +14,13 @@ Attention goes through ``ops.flash_attn.fused_attention``: the einsum form
 by default, the fused kernel with ``use_flash`` (the JAX package's switch of
 the same name).  Point-MAE's blocks are these blocks, so that one call site
 serves both backbones.
+
+Under the profiler (``tracing.py``) each of the ViT's blocks opens the spans
+``vit_attention`` (norm1, qkv, attention, proj, ``ls1``, residual) and
+``vit_mlp`` (norm2, MLP, ``ls2``, residual), and a forward counts
+``vit_attn_score_bytes``, the bytes of the (B, H, N, N) scores its einsum
+attention writes (0 with ``use_flash``).  Point-MAE's blocks open neither:
+they run inside its ``point_blocks`` span.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.ops.flash_attn import fused_attention
 
 
@@ -58,6 +66,10 @@ VIT_CONFIGS = {
     # DINOv2 ViT-B/14 at 518²: a 37x37 patch grid
     "vit_base_patch14_dinov2.lvd142m": ViTConfig(img_size=518, patch_size=14,
                                                   layer_scale=True),
+    # DINOv2 ViT-L/14 with four registers: 1 + 4 + 1369 tokens, 37x37x1024
+    "vit_large_patch14_reg4_dinov2.lvd142m": ViTConfig(
+        img_size=518, patch_size=14, embed_dim=1024, depth=24, num_heads=16,
+        layer_scale=True, num_reg_tokens=4),
     "tiny": ViTConfig(img_size=64, embed_dim=32, depth=2, num_heads=2),
 }
 
@@ -123,9 +135,14 @@ class Block(nn.Module):
         self.ls1 = LayerScale(dim) if layer_scale else nn.Identity()
         self.ls2 = LayerScale(dim) if layer_scale else nn.Identity()
 
-    def forward(self, x):
-        x = x + self.ls1(self.attn(layer_norm(self.norm1, x)))
+    def attention_residual(self, x):
+        return x + self.ls1(self.attn(layer_norm(self.norm1, x)))
+
+    def mlp_residual(self, x):
         return x + self.ls2(self.mlp(layer_norm(self.norm2, x)))
+
+    def forward(self, x):
+        return self.mlp_residual(self.attention_residual(x))
 
 
 class PatchEmbed(nn.Module):
@@ -142,6 +159,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         c = self.config = config
         self.dtype = dtype
+        self.use_flash = use_flash
         self.patch_embed = PatchEmbed(c.patch_size, c.embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.embed_dim))
         if c.num_reg_tokens:
@@ -167,8 +185,14 @@ class VisionTransformer(nn.Module):
             x = torch.cat([cls, self.reg_token.to(dt).expand(b, -1, -1), x], dim=1)
         else:
             x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        n = x.shape[1]
+        tracing.count("vit_attn_score_bytes", 0 if self.use_flash else
+                      len(self.blocks) * b * c.num_heads * n * n * x.element_size())
         for blk in self.blocks:
-            x = blk(x)
+            with tracing.span("vit_attention"):
+                x = blk.attention_residual(x)
+            with tracing.span("vit_mlp"):
+                x = blk.mlp_residual(x)
         x = layer_norm(self.norm, x)
         n_prefix = 1 + c.num_reg_tokens
         return x[:, n_prefix:].reshape(b, c.grid, c.grid, c.embed_dim)

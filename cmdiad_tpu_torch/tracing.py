@@ -22,9 +22,12 @@ module-attribute read (a ``with span(...)`` also builds the span object:
   makes a card do.
 
 The spans (``predict``, ``upload``, ``readback``, ``fps``, ``knn``,
-``group_encoder``, ``point_blocks``, ``regrid``) and the two counters are
-read by the per-layer metrics of ``perfbench/layer_metrics/`` and label the
-idle gaps of its breakdown.
+``group_encoder``, ``point_blocks``, ``regrid``, and in each of the ViT's
+blocks ``vit_attention`` and ``vit_mlp``) and the counters (``host_syncs``,
+``h2d_bytes``, and ``vit_attn_score_bytes``, the bytes of the score tensors
+the ViT's einsum attention writes, ``models/vit.py``) are read by the
+per-layer metrics of ``perfbench/layer_metrics/`` and label the idle gaps
+of its breakdown.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 #: names of the spans the predict path opens
 SPANS = ("predict", "upload", "readback", "fps", "knn", "group_encoder",
-         "point_blocks", "regrid")
+         "point_blocks", "regrid", "vit_attention", "vit_mlp")
 
 _counts: Dict[str, int] = {}
 _open_calls = 0

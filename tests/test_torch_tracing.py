@@ -9,6 +9,10 @@ serve a random fitted state; on the CPU at the tiny widths:
   expected number of times, inside ``predict``;
 * ``h2d_bytes`` and ``host_syncs`` equal a hand sum of what the call
   uploads and reads back, ``calls`` and ``images`` the batches and parts;
+* each of the ViT's blocks opens ``vit_attention`` and ``vit_mlp`` once,
+  only under the profiler, and Point-MAE's blocks open neither;
+  ``vit_attn_score_bytes`` is B * H * N² * 4 a block on the einsum path and
+  0 on the fused one;
 * no span name is one that ``perfbench/spans.json`` wraps, and the
   benchmark's readers of the counters read them (or nothing).
 
@@ -34,6 +38,8 @@ import torch
 from cmdiad_tpu_torch import kernels, tracing
 from cmdiad_tpu_torch.config import method_preset
 from cmdiad_tpu_torch.methods.registry import build_backbone, build_fusion, build_method
+from cmdiad_tpu_torch.models.point_mae import PointMAEConfig, PointTransformer, group_points
+from cmdiad_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from cmdiad_tpu_torch.ops.blur import _blur_matrix
 from cmdiad_tpu_torch.ops.masked import host_compact_points
 from cmdiad_tpu_torch.ops.pooling import (_adaptive_avg_matrix, _bilinear_matrix,
@@ -47,6 +53,7 @@ PRESETS = ("dual", "mtfi_ftof_xyz_main")      # the benchmark's two configuratio
 TINY = dict(rgb_backbone_name="tiny", xyz_backbone_name="tiny", rgb_size=64,
             xyz_size=64, gt_size=64, num_group=32, group_size=16)
 XYZ_SPANS = ("fps", "knn", "group_encoder", "point_blocks", "regrid")
+VIT_SPANS = ("vit_attention", "vit_mlp")
 BATCH = 3
 
 
@@ -110,6 +117,16 @@ def _expected(preset, method, batch):
     return syncs, nbytes
 
 
+def _vit_counts(preset, method, rows):
+    """The ViT's counter over a call of ``rows`` batch rows: the float32
+    (rows, H, N, N) scores of every block (none where the ViT is not run)."""
+    if preset != "dual":
+        return {}
+    c = method.backbone.vit_config
+    n = c.num_patches + 1 + c.num_reg_tokens
+    return {"vit_attn_score_bytes": c.depth * rows * c.num_heads * n * n * 4}
+
+
 def test_no_profiler_opens_no_range_and_counts_nothing(tiny, monkeypatch):
     _, method = tiny
     opened = []
@@ -131,11 +148,14 @@ def _profiled(fn):
 
 
 def test_spans_open_inside_predict(tiny):
-    _, method = tiny
+    preset, method = tiny
     events = _profiled(lambda: method.predict_batch(_batch(BATCH, BATCH, 64, 2048)))
     method.reset_predictions()
     seen = collections.Counter(e.name[len("span."):] for e in events)
-    assert seen == {"predict": 1, "upload": 1, "readback": 2, **dict.fromkeys(XYZ_SPANS, 1)}
+    depth = method.backbone.vit_config.depth if preset == "dual" else 0
+    vit = dict.fromkeys(VIT_SPANS, depth) if depth else {}
+    assert seen == {"predict": 1, "upload": 1, "readback": 2, **dict.fromkeys(XYZ_SPANS, 1),
+                    **vit}
     (call,) = [e.time_range for e in events if e.name == "span.predict"]
     for e in events:
         assert call.start <= e.time_range.start <= e.time_range.end <= call.end, e.name
@@ -147,11 +167,13 @@ def test_counters_are_the_hand_sum_of_what_a_call_moves(tiny):
     tracing.reset_counters()
     _profiled(lambda: method.predict_batch(full))
     syncs, nbytes = _expected(preset, method, full)
+    vit = _vit_counts(preset, method, BATCH)
     assert tracing.counters() == {"calls": 1, "images": BATCH, "host_syncs": syncs,
-                                  "h2d_bytes": nbytes}
+                                  "h2d_bytes": nbytes, **vit}
     _profiled(lambda: method.predict_batch(tail))              # padded: 1 part of 3 rows
     assert tracing.counters() == {"calls": 2, "images": BATCH + 1, "host_syncs": 2 * syncs,
-                                  "h2d_bytes": 2 * nbytes}
+                                  "h2d_bytes": 2 * nbytes,
+                                  **{k: 2 * v for k, v in vit.items()}}
     assert len(method.image_preds) == BATCH + 1
     method.reset_predictions()
     tracing.reset_counters()
@@ -172,8 +194,65 @@ def test_counting_stops_outside_a_predict_call():
 
 def test_span_names_are_not_the_benchmarks_wrapped_names():
     wrapped = set(json.loads((REPO / "perfbench" / "spans.json").read_text()))
-    assert len(set(tracing.SPANS)) == len(tracing.SPANS) == 8
+    assert len(set(tracing.SPANS)) == len(tracing.SPANS) == 10
     assert not wrapped & set(tracing.SPANS)
+
+
+REG4 = ViTConfig(img_size=56, patch_size=8, embed_dim=32, depth=3, num_heads=2,
+                layer_scale=True, num_reg_tokens=4)
+
+
+def _vit(use_flash=False):
+    net = VisionTransformer(REG4, use_flash=use_flash)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return net.eval()
+
+
+def test_vit_spans_open_once_a_block_and_only_under_the_profiler(monkeypatch):
+    net, x = _vit(), torch.randn(2, 56, 56, 3)
+    events = _profiled(lambda: net(x))
+    blocks = collections.Counter(e.name[len("span."):] for e in events)
+    assert blocks == dict.fromkeys(VIT_SPANS, REG4.depth)
+    # in block order: attention, then MLP
+    order = [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+    assert order == ["span.vit_attention", "span.vit_mlp"] * REG4.depth
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: pytest.fail("range opened"))
+    with torch.no_grad():
+        net(x)
+
+
+def test_point_mae_blocks_open_no_vit_span():
+    cfg = PointMAEConfig(num_group=16, group_size=8, encoder_dims=16, trans_dim=16, depth=3,
+                         num_heads=2, fetch_idx=(0, 2))
+    net = PointTransformer(cfg).eval()
+    pts = torch.randn(2, 256, 3)
+    centers, ori_idx, _ = group_points(pts, torch.ones(2, 256, dtype=torch.bool), 16, 8)
+    with torch.no_grad():
+        events = _profiled(lambda: net(pts, centers, ori_idx))
+    names = collections.Counter(e.name for e in events)
+    assert names["span.point_blocks"] == 1
+    assert not {"span." + n for n in VIT_SPANS} & set(names)
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["einsum", "fused"])
+def test_vit_attn_score_bytes_counts_the_einsum_scores(use_flash):
+    net, b = _vit(use_flash), 3
+    tracing.reset_counters()
+    with torch.no_grad():
+        net(torch.randn(b, 56, 56, 3))                         # no profiler: nothing
+        _profiled(lambda: net(torch.randn(b, 56, 56, 3)))      # outside a predict: nothing
+        assert "vit_attn_score_bytes" not in tracing.counters()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with tracing.predict_call(b):
+                net(torch.randn(b, 56, 56, 3))
+    n = 7 * 7 + 1 + 4
+    assert tracing.counters()["vit_attn_score_bytes"] == (
+        0 if use_flash else REG4.depth * b * REG4.num_heads * n * n * 4)
+    tracing.reset_counters()
 
 
 @pytest.mark.parametrize("metric, counts, value", [
@@ -181,6 +260,11 @@ def test_span_names_are_not_the_benchmarks_wrapped_names():
     ("h2d_mb_per_image", {"images": 8, "h2d_bytes": 16_000_000}, 2.0),
     ("host_syncs_per_call", {}, None),
     ("h2d_mb_per_image", {}, None),
+    # 16 heads x 1374² float32 scores x 24 blocks: 2899.6 MB an image
+    ("vit_attn_score_mb_per_image", {"images": 8, "vit_attn_score_bytes": 8 * 16 * 1374 ** 2
+                                     * 4 * 24}, 16 * 1374 ** 2 * 4 * 24 / 1e6),
+    ("vit_attn_score_mb_per_image", {"images": 8, "vit_attn_score_bytes": 0}, 0.0),
+    ("vit_attn_score_mb_per_image", {"images": 8}, None),
 ])
 def test_benchmark_readers_of_the_counters(metric, counts, value, monkeypatch):
     from perfbench.core import spec
