@@ -458,10 +458,11 @@ def check_bank_min_int8(rng, dev, nq: int, nb: int, d: int = 768,
 
 
 # Fused attention against its plain version, tolerances fixed before the
-# first run: float32 differs in summation order only; bfloat16 rounds p and
-# the output at the same points, so an element differs where a float32 sum
-# lands on the other side of a bfloat16 rounding boundary: one output ulp
-# (2^-7 of the value) plus ulps of p (1e-3 absolute at these magnitudes).
+# first run: float32 differs in summation order and by ex2.approx's 2 ulp
+# of p; bfloat16 rounds p and the output at the same points, so an element
+# differs where a float32 sum lands on the other side of a bfloat16
+# rounding boundary: one output ulp (2^-7 of the value) plus ulps of p
+# (1e-3 absolute at these magnitudes).
 FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-3)}
 
 
@@ -605,6 +606,8 @@ KERNEL_ROWS = (
      "cmdiad_tpu/ops/pallas_interp.py:38"),
     ("flash_attn", "flash_attn", "cmdiad_tpu_torch/csrc/flash_attn.cu",
      "cmdiad_tpu/ops/flash_attn.py:59"),
+    ("flash_attn_f32", "flash_attn", "cmdiad_tpu_torch/csrc/flash_attn.cu",
+     "cmdiad_tpu/ops/flash_attn.py:59"),
     ("int8_dot", "int8_dot", "cmdiad_tpu_torch/csrc/int8_dot.cu",
      "benchmarks/probe_int8_dot.py:19"),
     # replace no TPU kernel: the JAX package's host routine, and its
@@ -617,10 +620,15 @@ KERNEL_ROWS = (
      "cmdiad_tpu/ops/knn.py masked_knn (XLA top_k)"),
 )
 
-# the kernels each detection path must launch; the JSON row of a kernel
-# takes its launches from the first path listed here that runs it
+# the rows of one kernel's two dtypes: the result each prints (bfloat16 and
+# float32 at ViT-B/8's shape) and the path whose launches it takes
+DTYPE_ROWS = {"flash_attn": ("flash_attn", "throughput"),
+              "flash_attn_f32": ("flash_attn_f32", "default")}
+
+# the kernels each detection path must launch; the JSON row of any other
+# kernel takes its launches from the first path listed here that runs it
 PATHS = {
-    "default": (dict(), ("bank_min", "fps", "interp", "knn")),
+    "default": (dict(), ("bank_min", "flash_attn", "fps", "interp", "knn")),
     "throughput": (dict(compute_dtype="bfloat16", dist_method_s="l2_int8",
                         use_flash=True),
                    ("bank_min_int8", "flash_attn", "fps", "interp", "knn")),
@@ -655,12 +663,16 @@ def phase_kernels(dev):
     # FtoI rgb main: the regressed cloud, every one of its 50176 points valid
     check_interp(rng, dev, dense=True)
     # ViT-B/8 (785 tokens, 12 heads), Point-MAE (1024 tokens, 6 heads),
-    # DINOv2 at 518² (1370 tokens, 12 heads), Point-BERT (1025, 6)
+    # DINOv2 at 518² (1370 tokens, 12 heads), Point-BERT (1025, 6); float32
+    # also DINOv2 ViT-L/14-reg4 (1374, 16) and the two backbones at batch 1
     res["flash_attn"] = check_flash(rng, dev, "bfloat16", 785, 12)
+    res["flash_attn_f32"] = check_flash(rng, dev, "float32", 785, 12)
     for dtype in ("bfloat16", "float32"):
         for n, heads in ((1024, 6), (1370, 12), (1025, 6)) + (
-                ((785, 12),) if dtype == "float32" else ()):
+                ((1374, 16),) if dtype == "float32" else ()):
             check_flash(rng, dev, dtype, n, heads)
+    for n, heads in ((785, 12), (1024, 6)):
+        check_flash(rng, dev, "float32", n, heads, batch=1)
     # phase 8's shapes a rank: a 4096-row shard of the 8192-padded banks
     # (shard_bank at world 2), 4 of the 8 samples (data-parallel at world 2)
     check_bank_min(rng, dev, 8 * 3136, 4096)
@@ -844,9 +856,10 @@ def _check_flips(metric, gpu_log, cpu_log, label: str = "card vs CPU") -> int:
 
 # The maps the CPU computes on the card's bank rows, against the card's, as
 # a share of the map maximum (limits fixed before the first run):
-# float32 backbones differ in summation order only; bfloat16 backbones
-# round their GEMM sums apart on the two devices, so features differ by
-# bfloat16 ulps and each patch distance by at most |q_gpu - q_cpu|.
+# float32 backbones differ in summation order and the card's ex2.approx in
+# attention; bfloat16 backbones round their GEMM sums apart on the two
+# devices, so features differ by bfloat16 ulps and each patch distance by
+# at most |q_gpu - q_cpu|.
 SAME_ROWS_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 1e-1)}
 
 
@@ -865,7 +878,8 @@ def compare_with_cpu(cfg, method, samples):
     the two devices' FPS may part at a near tie; ``check_fusion_net`` holds
     the nets themselves to each other).
 
-    The two devices' backbones differ in summation order (float32: about
+    The two devices' backbones differ in summation order and the card's
+    attention exponential (float32: about
     1e-6; bfloat16: ulps of 2^-8), so where two bank rows lie within the
     quantised product's rounding of each other the two devices may choose
     different rows; the map then shows the other row's exact distance at
@@ -1485,10 +1499,10 @@ def phase_train(dev, samples, card: str, profile=None):
         torch.cuda.synchronize()
         dump_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        for k in ("bank_min", "fps", "interp", "knn"):
+        # float32 attention at head dim 64 takes the fused kernel
+        for k in ("bank_min", "flash_attn", "fps", "interp", "knn"):
             assert launches[k] > 0, f"the dumping run did not launch {k}"
-        for k in ("bank_min_int8", "flash_attn"):
-            assert launches[k] == 0, f"the dumping run launched {k}"
+        assert launches["bank_min_int8"] == 0, "the dumping run launched bank_min_int8"
         for k, v in metrics.items():
             assert np.isfinite(v) and 0.0 <= v <= 1.0, (k, v)
         n_files = {k: len(os.listdir(os.path.join(d, "train"))) + len(os.listdir(
@@ -2257,10 +2271,12 @@ def main() -> int:
 
     rows = []
     for name, key, src, replaces in KERNEL_ROWS:
+        res_key, path = DTYPE_ROWS.get(name, (key, None))
         n = probe_launches if key == "int8_dot" else tail_launches[key] if key in tail_launches \
+            else launches[path][key] if path \
             else next(launches[p][key] for p in PATHS if key in PATHS[p][1])
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": n, **res[key]})
+                     "replaces": replaces, "launches": n, **res[res_key]})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

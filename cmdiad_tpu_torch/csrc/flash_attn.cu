@@ -1,8 +1,9 @@
 // Fused multi-head self-attention, softmax(q.k^T).v per (batch, head).
 //
 // Replaces the TPU kernel cmdiad_tpu/ops/flash_attn.py:_attn_kernel
-// (reached through fused_attention with use_flash=True).  Semantics, as
-// there: q arrives pre-scaled in the compute dtype; scores are products of
+// (reached through fused_attention with use_flash=True, and at float32 also
+// without it: see the float32 design below).  Semantics, as there: q
+// arrives pre-scaled in the compute dtype; scores are products of
 // compute-dtype operands summed in float32 and stay float32; keys past the
 // sequence end get -inf; the softmax runs in float32 with the true row max
 // and the normalised p is rounded to the compute dtype before p.v; p.v
@@ -47,13 +48,40 @@
 //     two; two cut the work into finer items.  The launcher takes three
 //     unless two need fewer warpgroup-rounds: the ViT shape takes three,
 //     the Point-MAE shape two.
-// float32 design: plain FFMA (no TF32) and one pass with an online softmax:
-// rounding the normalised p to float32 is the identity, so p.v / l differs
-// from the two-pass form by float32 rounding only.  One CTA of 256 threads
-// per (batch.head, 64 queries); each thread owns a 4 x 4 block of the score
-// tile (queries ty + 16a, keys tx + 16b) and a 4 x 4 block of the output,
-// so every value read from shared memory feeds four FMAs.  K and V tiles of
-// 64 keys are double-buffered with cp.async.
+// float32 design (the route of every float32 call at head dim 64 on the
+// card, ops/flash_attn.py): plain FFMA, no TF32, bfloat16 or 3xTF32, and one
+// pass with an online softmax in float32 m, l and o.  Rounding the
+// normalised p to float32 is the identity, so o / l differs from the
+// two-pass form, and from the einsum form, by float32 summation order and
+// by ex2.approx (about 2 ulp, denormals flushed) where they take expf.
+//   * What bounds it: the FFMA rate, 2 N^2 64 FMAs a (batch, head) at 67
+//     TFLOP/s (0.923 ms at B 8 x 16 heads x 1374, 0.226 at 8 x 12 x 785,
+//     0.192 at 8 x 6 x 1024), and with it shared memory, which hands an SM
+//     32 floats a clock against 128 FMAs: a register tile must turn every
+//     float a thread reads into four FMAs to keep up, broadcasts included.
+//   * A CTA of four warps takes 128 queries of one (batch, head); a warp
+//     owns 32 of them, a lane 8 rows x 8 keys of each 64-key tile of S and
+//     8 rows x 8 head dims of O, so that both products read one float for
+//     four FMAs (LDS.128 along the head dim for q.k^T, along queries and
+//     head dims for p.V).  Q and K rows are swizzled by 16-byte chunk so
+//     that the lanes' reads of one column hit eight bank groups.
+//   * K and V stream through a two-slot ring by cp.async, reading the
+//     (B, N, 3, H, 64) projection in place through its strides: tile j + 1
+//     lands while tile j is worked on, one CTA barrier a tile.
+//   * p goes from the S layout to the p.V layout through the warp's own
+//     shared buffer, 32 keys at a time: warp barriers, no CTA barrier.  A
+//     row's max is shared by its eight key lanes through shuffles; each
+//     lane keeps its part of the sum, added once at the end, and the output
+//     takes one reciprocal a row.  Exponentials are ex2.approx of
+//     log2 e-scaled scores, one FFMA each.
+//   * 254 registers (222 with the split below) and 112 KB of shared
+//     memory: two CTAs (eight warps) an SM.  Where the 128-query grid is short of three rounds of two CTAs an
+//     SM (batch 1, and ViT-B/8's 785 tokens at batch 8), a CTA takes 64
+//     queries and each pair of warps splits every key tile, 32 keys each (8
+//     rows x 4 keys of S a lane), merging their m, l and o at the end: twice
+//     the warps for the same work.  A CTA of fewer warps measured slower at
+//     every shape: the ring caps an SM at two CTAs.  O is written as
+//     (B, N, H, 64), which proj reads as it is.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -86,10 +114,24 @@ struct Shape {
 // 22 tiles, N <= 1408, for both shapes
 constexpr int kMaxKeyTiles = Shape<3>::kMaxKeyTiles;
 
-// float32 kernel
-constexpr int kFQ = 64;           // queries per CTA
-constexpr int kFThreads = 256;    // 16 x 16
-constexpr int kFPad = kD + 4;     // floats per padded shared row
+// float32 kernel: a CTA of four warps; each owns 32 queries and all of each
+// key tile's 64 keys, or (kSplit = 2) half of them, its partner warp the
+// other half
+constexpr int kFW = 4;               // warps a CTA
+constexpr int kWarpQ = 32;           // queries a warp
+constexpr int kFThreads = 32 * kFW;
+constexpr int kPKeys = 32;           // keys of p a warp hands over at a time
+constexpr int kTileF = kBKey * kD;   // floats of a K or V tile
+
+template <int kSplit>
+struct F32Shape {
+  static constexpr int kBQ = kFW / kSplit * kWarpQ;  // queries a CTA
+  static constexpr int kKeys = kBKey / kSplit;       // a warp's keys a tile
+  // q, the two-slot K and V ring and each warp's p: 112 KB at kSplit = 1,
+  // so that two CTAs share an SM
+  static constexpr int kSmem =
+      (kBQ * kD + 4 * kTileF + kFW * kPKeys * kWarpQ) * (int)sizeof(float);
+};
 
 // Keep the compiler from touching registers of an asynchronous wgmma
 // before the wait that completes it.
@@ -504,155 +546,265 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// Float offset of 16-byte chunk c of row r in a shared tile whose rows
+// hold kChunks chunks, the chunk index's low three bits XORed with the
+// row's: eight consecutive rows read at one column hit eight bank groups.
+template <int kChunks>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kChunks * 4 + ((c ^ (r & 7)) << 2);
+}
+
+__device__ __forceinline__ float4 lds128(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float x, float y, float z,
+                                       float w) {
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+}
+
+// Warp w owns queries q0 + 32 g .. + 31 of its group g = w / kSplit; lane
+// (ty, tx) = (lane / 8, lane % 8) owns rows ty + 4 a (a < 8) of them; in S
+// keys kKeys p + tx + 8 c (c < kKeys / 8) of each 64-key tile, p = w %
+// kSplit its part; in O head dims 4 tx .. + 3 and 32 + 4 tx .. + 3.
+//
+// Shared memory, in floats (Q and K rows 16-byte-chunk swizzled):
+//   Q [kBQ][64]               q pre-scaled, written once
+//   K [2][64 keys][64]        the ring, cp.async of 16 bytes
+//   V [2][64 keys][64]
+//   P [4][32 keys][32 q]      a warp's p, slot 8 ty + a holding row ty + 4 a
+template <int kSplit>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int N,
                  int H, long long sb, long long sn, float scale) {
+  using S = F32Shape<kSplit>;
+  constexpr int kBQ = S::kBQ, kKeys = S::kKeys, kC = kKeys / 8;
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                      // [64][kFPad]
-  float* Ks = Qs + kFQ * kFPad;         // [2][64][kFPad]
-  float* Vs = Ks + 2 * kBKey * kFPad;   // [2][64][64]
-  float* Ps = Vs + 2 * kBKey * kD;      // [64 keys][kFPad], column ty*4 + a
+  float* Qs = fsm;
+  float* Ks = Qs + kBQ * kD;
+  float* Vs = Ks + 2 * kTileF;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = lane & 7, ty = lane >> 3;
+  const int grp = warp / kSplit, part = warp % kSplit;
+  float* Pw = Vs + 2 * kTileF + warp * kPKeys * kWarpQ;
+  const int qr = grp * kWarpQ + ty;      // the thread's row a is qr + 4 a
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int b = blockIdx.y / H, head = blockIdx.y % H;
-  const int q0 = blockIdx.x * kFQ;
+  const int q0 = blockIdx.x * kBQ;
   const size_t base = (size_t)b * sb + (size_t)head * kD;
   const int nkt = (N + kBKey - 1) / kBKey;
 
-  // stage keys and values [k0, k0 + 64) (zeros past the sequence end)
+  // keys and values [k0, k0 + 64) into ring slot j % 2, zeros past the end
   auto stage = [&](int j) {
-    const int k0 = j * kBKey, buf = j & 1;
-    for (int i = tid; i < kBKey * (kD / 4); i += kFThreads) {
-      const int r = i / (kD / 4), c4 = (i % (kD / 4)) * 4;
+    const int k0 = j * kBKey;
+    float* kd = Ks + (j & 1) * kTileF;
+    float* vd = Vs + (j & 1) * kTileF;
+#pragma unroll
+    for (int it = 0; it < kTileF / 4 / kFThreads; ++it) {
+      const int i = tid + it * kFThreads, r = i >> 4, c = i & 15;
       const bool ok = k0 + r < N;
-      const size_t off = ok ? base + (size_t)(k0 + r) * sn + c4 : base;
-      cp_async16(Ks + (buf * kBKey + r) * kFPad + c4, k + off, ok);
-      cp_async16(Vs + (buf * kBKey + r) * kD + c4, v + off, ok);
+      const size_t off = ok ? base + (size_t)(k0 + r) * sn + 4 * c : base;
+      cp_async16(kd + swz<16>(r, c), k + off, ok);
+      cp_async16(vd + r * kD + 4 * c, v + off, ok);
     }
     cp_async_commit();
   };
   stage(0);
 
-  // q pre-scaled in float32
-  for (int i = tid; i < kFQ * (kD / 4); i += kFThreads) {
-    const int r = i / (kD / 4), c4 = (i % (kD / 4)) * 4;
+  // q pre-scaled in float32, as the einsum form scales it
+#pragma unroll 4
+  for (int it = 0; it < kBQ * (kD / 4) / kFThreads; ++it) {
+    const int i = tid + it * kFThreads, r = i >> 4, c = i & 15;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < N)
-      x = *reinterpret_cast<const float4*>(q + base + (size_t)(q0 + r) * sn + c4);
-    x.x = __fmul_rn(x.x, scale);
-    x.y = __fmul_rn(x.y, scale);
-    x.z = __fmul_rn(x.z, scale);
-    x.w = __fmul_rn(x.w, scale);
-    *reinterpret_cast<float4*>(Qs + r * kFPad + c4) = x;
+      x = *reinterpret_cast<const float4*>(q + base + (size_t)(q0 + r) * sn + 4 * c);
+    store4(Qs + swz<16>(r, c), __fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+           __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
   }
 
-  float m[4], l[4], o[4][4];
+  float o[8][8], m[8], l[8];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < 8; ++a) {
     m[a] = -INFINITY;
     l[a] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[a][c] = 0.0f;
+    for (int e = 0; e < 8; ++e) o[a][e] = 0.0f;
   }
   for (int j = 0; j < nkt; ++j) {
-    if (j + 1 < nkt) {
-      stage(j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    // tile j is in and every warp is done with tile j - 1: its slot takes
+    // tile j + 1, which lands while this tile is worked on
+    cp_async_wait<0>();
     __syncthreads();
-    const float* Kb = Ks + (j & 1) * kBKey * kFPad;
-    const float* Vb = Vs + (j & 1) * kBKey * kD;
-    const int k0 = j * kBKey;
+    if (j + 1 < nkt) stage(j + 1);
+    const float* Kb = Ks + (j & 1) * kTileF + part * kKeys * kD;
+    const float* Vb = Vs + (j & 1) * kTileF + part * kKeys * kD;
 
-    // scores of queries ty + 16a against keys tx + 16b
-    float s[4][4];
+    // S = q . k^T: each chunk of four head dims is kC + 8 LDS.128 for
+    // 32 kC FMAs (at kSplit = 1 four FMAs a float read)
+    float s[8][kC];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
+      for (int c = 0; c < kC; ++c) s[a][c] = 0.0f;
+#pragma unroll 4
+    for (int dc = 0; dc < kD / 4; ++dc) {
+      float4 kf[kC];
 #pragma unroll
-    for (int d = 0; d < kD; d += 4) {
-      float4 qa[4], kb[4];
+      for (int c = 0; c < kC; ++c) kf[c] = lds128(Kb + swz<16>(tx + 8 * c, dc));
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qa[a] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * a) * kFPad + d);
+      for (int a = 0; a < 8; ++a) {
+        const float4 qa = lds128(Qs + swz<16>(qr + 4 * a, dc));
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kb[c] = *reinterpret_cast<const float4*>(Kb + (tx + 16 * c) * kFPad + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[a][c] = fmaf(qa[a].x, kb[c].x, s[a][c]);
-          s[a][c] = fmaf(qa[a].y, kb[c].y, s[a][c]);
-          s[a][c] = fmaf(qa[a].z, kb[c].z, s[a][c]);
-          s[a][c] = fmaf(qa[a].w, kb[c].w, s[a][c]);
+        for (int c = 0; c < kC; ++c) {
+          s[a][c] = fmaf(qa.x, kf[c].x, s[a][c]);
+          s[a][c] = fmaf(qa.y, kf[c].y, s[a][c]);
+          s[a][c] = fmaf(qa.z, kf[c].z, s[a][c]);
+          s[a][c] = fmaf(qa.w, kf[c].w, s[a][c]);
         }
+      }
     }
 
-    // online softmax: the row's 16 threads (tx) share its max
+    // online softmax: a row's eight key lanes share its max; each keeps
+    // its own part of the sum, rescaled with the row's max
+    const int k0 = j * kBKey + part * kKeys;
+    if (k0 + kKeys > N) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = -INFINITY;
+      for (int c = 0; c < kC; ++c)
+        if (k0 + tx + 8 * c >= N)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (k0 + tx + 16 * c >= N) s[a][c] = -INFINITY;
-        mx = fmaxf(mx, s[a][c]);
-      }
+          for (int a = 0; a < 8; ++a) s[a][c] = -INFINITY;
+    }
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float mn = fmaxf(m[a], mx);
-      const float alpha = ex2((m[a] - mn) * kLog2e);
+    for (int a = 0; a < 8; ++a) {
+      float mx = s[a][0];
+#pragma unroll
+      for (int c = 1; c < kC; ++c) mx = fmaxf(mx, s[a][c]);
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+      // a warp whose keys all lie past the sequence end so far keeps
+      // m = -inf, l = 0 and o = 0 (only at kSplit = 2)
+      const float mn = fmaxf(m[a], mx), mnl = mn == -INFINITY ? 0.0f : mn * kLog2e;
+      const float alpha = ex2(fmaf(m[a], kLog2e, -mnl));  // 0 on the first tile
       float sum = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] = ex2((s[a][c] - mn) * kLog2e);
+      for (int c = 0; c < kC; ++c) {
+        s[a][c] = ex2(fmaf(s[a][c], kLog2e, -mnl));
         sum += s[a][c];
       }
-      l[a] = l[a] * alpha + sum;
+      l[a] = fmaf(l[a], alpha, sum);
       m[a] = mn;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[a][c] *= alpha;
+      for (int e = 0; e < 8; ++e) o[a][e] *= alpha;
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(Ps + (tx + 16 * c) * kFPad + ty * 4) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    __syncthreads();
 
-    // o[a][c] += sum over keys of p[query ty + 16a][key] v[key][4 tx + c]
-#pragma unroll 8
-    for (int kk = 0; kk < kBKey; ++kk) {
-      const float4 pa = *reinterpret_cast<const float4*>(Ps + kk * kFPad + ty * 4);
-      const float4 vb = *reinterpret_cast<const float4*>(Vb + kk * kD + tx * 4);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+    // O += p . V, 32 keys at a time: the warp's lanes hand p over through
+    // its own shared buffer (a warp barrier, no CTA barrier); each key is
+    // 2 + 2 LDS.128 for 64 FMAs
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        o[a][0] = fmaf(pv[a], vb.x, o[a][0]);
-        o[a][1] = fmaf(pv[a], vb.y, o[a][1]);
-        o[a][2] = fmaf(pv[a], vb.z, o[a][2]);
-        o[a][3] = fmaf(pv[a], vb.w, o[a][3]);
+    for (int h = 0; h < kKeys / kPKeys; ++h) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = tx + 8 * c, sc = 4 * h + c;
+        store4(Pw + swz<8>(key, 2 * ty), s[0][sc], s[1][sc], s[2][sc], s[3][sc]);
+        store4(Pw + swz<8>(key, 2 * ty + 1), s[4][sc], s[5][sc], s[6][sc],
+               s[7][sc]);
+      }
+      __syncwarp();
+      const float* Vh = Vb + h * kPKeys * kD;
+#pragma unroll 4
+      for (int kk = 0; kk < kPKeys; ++kk) {
+        const float4 p0 = lds128(Pw + swz<8>(kk, 2 * ty));
+        const float4 p1 = lds128(Pw + swz<8>(kk, 2 * ty + 1));
+        const float4 v0 = lds128(Vh + kk * kD + 4 * tx);
+        const float4 v1 = lds128(Vh + kk * kD + 32 + 4 * tx);
+        const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[a][e] = fmaf(p[a], vv[e], o[a][e]);
+      }
+      __syncwarp();
+    }
+  }
+
+  // the row's sum over its eight key lanes
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    l[a] += __shfl_xor_sync(kFull, l[a], 1);
+    l[a] += __shfl_xor_sync(kFull, l[a], 2);
+    l[a] += __shfl_xor_sync(kFull, l[a], 4);
+  }
+  if constexpr (kSplit == 2) {
+    // the second warp of a group hands its m, l and o to the first through
+    // the (now idle) K ring, which rescales both to the larger max
+    __syncthreads();
+    float* X = Ks + grp * kWarpQ * (kD + 2);  // [32 rows][m, l, 64 o]
+    if (part == 1) {
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        float* xr = X + (ty + 4 * a) * (kD + 2);
+        if (tx == 0) {
+          xr[0] = m[a];
+          xr[1] = l[a];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xr[2 + 4 * tx + e] = o[a][e];
+          xr[2 + 32 + 4 * tx + e] = o[a][4 + e];
+        }
       }
     }
-    __syncthreads();  // this buffer and Ps are free for the next tile
+    __syncthreads();
+    if (part == 1) return;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const float* xr = X + (ty + 4 * a) * (kD + 2);
+      const float m1 = xr[0], mx = fmaxf(m[a], m1), mxl = mx * kLog2e;
+      const float a0 = ex2(fmaf(m[a], kLog2e, -mxl));
+      const float a1 = ex2(fmaf(m1, kLog2e, -mxl));
+      l[a] = fmaf(l[a], a0, xr[1] * a1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[a][e] = fmaf(o[a][e], a0, xr[2 + 4 * tx + e] * a1);
+        o[a][4 + e] = fmaf(o[a][4 + e], a0, xr[2 + 32 + 4 * tx + e] * a1);
+      }
+    }
   }
 
+  // one reciprocal a row
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float lt = l[a];
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) lt += __shfl_xor_sync(kFull, lt, off);
-    const int n = q0 + ty + 16 * a;
+  for (int a = 0; a < 8; ++a) {
+    const int n = q0 + qr + 4 * a;
     if (n >= N) continue;
-    const float rl = 1.0f / lt;
-    float* dst = out + ((size_t)b * N + n) * H * kD + (size_t)head * kD + tx * 4;
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(o[a][0] * rl, o[a][1] * rl, o[a][2] * rl, o[a][3] * rl);
+    const float rl = 1.0f / l[a];
+    float* dst = out + ((size_t)b * N + n) * H * kD + (size_t)head * kD + 4 * tx;
+    store4(dst, o[a][0] * rl, o[a][1] * rl, o[a][2] * rl, o[a][3] * rl);
+    store4(dst + 32, o[a][4] * rl, o[a][5] * rl, o[a][6] * rl, o[a][7] * rl);
   }
+}
+
+// One CTA per (batch.head, 128 / kSplit queries); two share an SM.
+template <int kSplit>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int B, int N, int H, long long sb, long long sn,
+                       float scale, cudaStream_t st) {
+  using S = F32Shape<kSplit>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel<kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_f32_kernel<kSplit>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + S::kBQ - 1) / S::kBQ, B * H);
+  flash_f32_kernel<kSplit><<<grid, kFThreads, S::kSmem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, N, H,
+      sb, sn, scale);
+  return cudaGetLastError();
 }
 
 // One head's rows of q, k or v inside the qkv projection: dims (64, H, N,
@@ -713,37 +865,34 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  long long sn, float scale, int is_bf16,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
   if (is_bf16) {
     if ((N + kBKey - 1) / kBKey > kMaxKeyTiles)
       return (int)cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     // Three consumer warpgroups hide the softmax's latencies better than
     // two; two cut the work into finer items, so the last round of items
     // leaves fewer SMs idle.  Take three unless two need fewer
     // warpgroup-rounds (rounds of items over the SMs, times the
     // warpgroups of an item).
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     auto items = [&](int cw) { return B * H * ((N + 64 * cw - 1) / (64 * cw)); };
     auto cost = [&](int cw) { return (items(cw) + sms - 1) / sms * cw; };
     auto ctas = [&](int cw) { return items(cw) < sms ? items(cw) : sms; };
-    err = cost(3) <= cost(2)
-              ? launch_bf16<3>(q, k, v, out, B, N, H, sb, sn, scale, ctas(3), st)
-              : launch_bf16<2>(q, k, v, out, B, N, H, sb, sn, scale, ctas(2), st);
-    return (int)err;
-  } else {
-    const int smem =
-        (kFQ * kFPad + 2 * kBKey * kFPad + 2 * kBKey * kD + kBKey * kFPad) *
-        (int)sizeof(float);
-    err = cudaFuncSetAttribute(flash_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + kFQ - 1) / kFQ, B * H);
-    flash_f32_kernel<<<grid, kFThreads, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, N, H,
-        sb, sn, scale);
+    return (int)(cost(3) <= cost(2)
+        ? launch_bf16<3>(q, k, v, out, B, N, H, sb, sn, scale, ctas(3), st)
+        : launch_bf16<2>(q, k, v, out, B, N, H, sb, sn, scale, ctas(2), st));
   }
-  return (int)cudaGetLastError();
+  // 128 queries a CTA, every warp on all keys of a tile, where that grid
+  // fills three or more rounds of two CTAs an SM; else 64, each warp pair
+  // splitting every tile's keys, whose finer grid leaves less of the last
+  // round idle and, at batch 1, gives each SM work (measured, PERF.md §6)
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long ctas =
+      (long long)B * H * ((N + F32Shape<1>::kBQ - 1) / F32Shape<1>::kBQ);
+  return (int)(ctas >= 3 * 2 * sms
+      ? launch_f32<1>(q, k, v, out, B, N, H, sb, sn, scale, st)
+      : launch_f32<2>(q, k, v, out, B, N, H, sb, sn, scale, st));
 }

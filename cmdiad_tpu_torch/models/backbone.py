@@ -76,7 +76,8 @@ class DualBackbone:
         # built on the meta device so construction draws no random numbers;
         # every weight then comes from the seeded generator.  use_flash sends
         # the attention of both networks through the fused kernel
-        # (ops/flash_attn.py) instead of the einsum form
+        # (ops/flash_attn.py) instead of the einsum form; on a card float32
+        # attention at head dim 64 takes the kernel whatever it says
         with torch.device("meta"):
             self.vit = VisionTransformer(self.vit_config, dtype=dtype,
                                          use_flash=use_flash)

@@ -10,17 +10,20 @@ register flavour, register tokens under timm's ``no_embed_class`` rule:
 registers are prepended.  Module names follow timm, so a timm state dict
 loads directly.
 
-Attention goes through ``ops.flash_attn.fused_attention``: the einsum form
-by default, the fused kernel with ``use_flash`` (the JAX package's switch of
-the same name).  Point-MAE's blocks are these blocks, so that one call site
-serves both backbones.
+Attention goes through ``ops.flash_attn.fused_attention``, whose route
+follows the operands: on a card the fused kernel runs with ``use_flash``
+(the JAX package's switch of the same name) and for every float32 call at
+head dim 64 that needs no gradient, whatever ``use_flash`` says; the rest
+takes the einsum form.  Point-MAE's blocks are these blocks, so that one
+call site serves both backbones.
 
 Under the profiler (``tracing.py``) each of the ViT's blocks opens the spans
 ``vit_attention`` (norm1, qkv, attention, proj, ``ls1``, residual) and
-``vit_mlp`` (norm2, MLP, ``ls2``, residual), and a forward counts
-``vit_attn_score_bytes``, the bytes of the (B, H, N, N) scores its einsum
-attention writes (0 with ``use_flash``).  Point-MAE's blocks open neither:
-they run inside its ``point_blocks`` span.
+``vit_mlp`` (norm2, MLP, ``ls2``, residual), and its attention counts
+``vit_attn_score_bytes``, the bytes of the (B, H, N, N) scores the einsum
+form writes (0 where the call took the kernel or the plain fused form).
+Point-MAE's blocks open neither span and count nothing: they run inside its
+``point_blocks`` span.
 """
 
 from __future__ import annotations
@@ -88,6 +91,9 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
+    # the tracing counter of the einsum form's score bytes (None: uncounted)
+    score_counter = None
+
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  use_flash: bool = False):
         super().__init__()
@@ -101,7 +107,8 @@ class Attention(nn.Module):
         hd = c // self.num_heads
         qkv = linear(self.qkv, x).reshape(b, n, 3, self.num_heads, hd)
         out = fused_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                              hd ** -0.5, use_flash=self.use_flash)
+                              hd ** -0.5, use_flash=self.use_flash,
+                              score_counter=self.score_counter)
         return linear(self.proj, out.reshape(b, n, c))
 
 
@@ -169,6 +176,8 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(c.embed_dim, c.num_heads, c.mlp_ratio, c.qkv_bias, c.ln_eps,
                   use_flash, c.layer_scale) for _ in range(c.depth))
+        for blk in self.blocks:
+            blk.attn.score_counter = "vit_attn_score_bytes"
         self.norm = nn.LayerNorm(c.embed_dim, eps=c.ln_eps)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -185,9 +194,6 @@ class VisionTransformer(nn.Module):
             x = torch.cat([cls, self.reg_token.to(dt).expand(b, -1, -1), x], dim=1)
         else:
             x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
-        n = x.shape[1]
-        tracing.count("vit_attn_score_bytes", 0 if self.use_flash else
-                      len(self.blocks) * b * c.num_heads * n * n * x.element_size())
         for blk in self.blocks:
             with tracing.span("vit_attention"):
                 x = blk.attention_residual(x)

@@ -10,16 +10,29 @@ The port's counterpart of the JAX package's ``ops/flash_attn.py``
   compute dtype; scores are products of compute-dtype operands summed in
   float32 and stay float32; the softmax runs in float32 and the normalised
   p is rounded to the compute dtype before p.v, which accumulates in
-  float32; the output is rounded to the compute dtype.  A CUDA tensor
-  launches the kernel (``csrc/flash_attn.cu``), a CPU tensor runs
-  ``_fused_attention_plain``.
+  float32; the output is rounded to the compute dtype.
+
+At float32 the two forms take the same float32 operands, products and
+accumulation, float32 scores and a float32 softmax, and rounding p to
+float32 changes nothing.  They differ in the order of summation and in the
+exponential: the kernel takes ``ex2.approx`` (about 2 ulp, denormals
+flushed to zero) of log2 e-scaled scores where the einsum form's softmax
+takes an accurate ``exp``, and the card tests hold the two within 1e-5.  So
+the route depends on the operands and not on ``use_flash`` alone
+(``takes_einsum``): a CUDA tensor launches the kernel
+(``csrc/flash_attn.cu``) with ``use_flash``, and also without it where it
+is float32 at head dim 64 and needs no gradient.  Every other call without
+``use_flash`` takes the einsum form; a CPU tensor with ``use_flash`` runs
+``_fused_attention_plain``.  A caller that names a ``score_counter`` has
+the bytes of the (B, H, N, N) scores the einsum form writes counted under
+it (``tracing.count``), 0 where the call took a fused form.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cmdiad_tpu_torch import kernels
+from cmdiad_tpu_torch import kernels, tracing
 
 # head dimension the kernel is written for, and the most tokens its
 # bfloat16 form takes: it keeps a head's K in shared memory
@@ -42,6 +55,18 @@ def _fused_attention_plain(q, k, v, scale: float):
     p = (p / torch.sum(p, dim=-1, keepdim=True)).to(q.dtype)
     o = torch.einsum("bhnm,bmhd->bnhd", p.to(torch.float32), v.to(torch.float32))
     return o.to(q.dtype)
+
+
+def takes_einsum(device_type: str, dtype: torch.dtype, head_dim: int,
+                 use_flash: bool, needs_grad: bool) -> bool:
+    """Whether ``fused_attention`` takes the einsum form for operands on
+    ``device_type`` of ``dtype`` and ``head_dim``: never with ``use_flash``,
+    and on a card not for float32 at head dim 64 when no gradient is
+    needed (the kernel's)."""
+    if use_flash:
+        return False
+    return not (device_type == "cuda" and dtype == torch.float32
+                and head_dim == HEAD_DIM and not needs_grad)
 
 
 def _fused_attention_cuda(q, k, v, scale: float):
@@ -74,10 +99,18 @@ def _fused_attention_cuda(q, k, v, scale: float):
     return out
 
 
-def fused_attention(q, k, v, scale: float, use_flash: bool = False):
+def fused_attention(q, k, v, scale: float, use_flash: bool = False,
+                    score_counter: str | None = None):
     """softmax((q·scale)·kᵀ)·v per head: q, k, v (B, N, H, D) -> (B, N, H, D)
-    in the compute dtype (see the module docstring for the two forms)."""
-    if not use_flash:
+    in the compute dtype (see the module docstring for the two forms, the
+    route and ``score_counter``)."""
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    einsum = takes_einsum(q.device.type, q.dtype, q.shape[-1], use_flash, needs_grad)
+    if score_counter:
+        b, n, h, _ = q.shape
+        tracing.count(score_counter, einsum * b * h * n * n * q.element_size())
+    if einsum:
         return _einsum_attention(q, k, v, scale)
     if q.is_cuda:
         return _fused_attention_cuda(q, k, v, scale)

@@ -25,7 +25,7 @@ The spans (``predict``, ``upload``, ``readback``, ``fps``, ``knn``,
 ``group_encoder``, ``point_blocks``, ``regrid``, and in each of the ViT's
 blocks ``vit_attention`` and ``vit_mlp``) and the counters (``host_syncs``,
 ``h2d_bytes``, and ``vit_attn_score_bytes``, the bytes of the score tensors
-the ViT's einsum attention writes, ``models/vit.py``) are read by the
+the ViT's einsum attention writes, ``ops/flash_attn.py``) are read by the
 per-layer metrics of ``perfbench/layer_metrics/`` and label the idle gaps
 of its breakdown.
 """

@@ -12,7 +12,8 @@ steps must match their plain versions exactly (same float32 operations in
 the same order, no FMA but the KNN's cross term, written as cuBLAS rounds
 it; the int8 product is exact); the bfloat16 bank min/argmin may differ only
 where two bank rows tie to float32 summation order, the fused attention
-and the bfloat16 probe product to float32 summation order.
+(float32 also by its ex2.approx, about 2 ulp of p) and the bfloat16 probe
+product to float32 summation order.
 """
 
 import numpy as np
@@ -405,16 +406,19 @@ def _qkv(rng, dev, dtype, b=2, n=135, h=3):
 
 @pytest.mark.parametrize("n,b,h", [(64, 2, 3), (135, 2, 3), (785, 2, 3),
                                    (1024, 2, 3), (785, 8, 12), (1024, 8, 6),
-                                   (1370, 8, 12), (1025, 8, 6)])
+                                   (1370, 8, 12), (1025, 8, 6), (1374, 8, 16),
+                                   (785, 1, 12), (1024, 1, 6)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_kernel_matches_plain(dev, rng, dtype, n, b, h):
-    """float32: summation order only.  bfloat16: the same rounding points,
-    so an element differs where a float32 sum rounds to the other bfloat16
-    neighbour: one output ulp (2^-7 relative) plus a p ulp.  The backbones'
-    shapes (B 8, ViT 12 heads x 785, Point-MAE 6 x 1024) take the two CTA
-    shapes of the bfloat16 kernel, as do DINOv2 at 518² (12 x 1370) and
-    Point-BERT (6 x 1025 with its cls token), whose key tiles end ragged;
-    two launches agree bit for bit."""
+    """float32: summation order and ex2.approx's 2 ulp of p.  bfloat16: the
+    same rounding points, so an element differs where a float32 sum rounds
+    to the other bfloat16 neighbour: one output ulp (2^-7 relative) plus a
+    p ulp.  The backbones' shapes (B 8, ViT 12 heads x 785, Point-MAE 6 x
+    1024) take the two CTA shapes of the bfloat16 kernel, as do DINOv2 at
+    518² (12 x 1370) and Point-BERT (6 x 1025 with its cls token), whose key
+    tiles end ragged; in float32 DINOv2 ViT-L/14-reg4 (16 x 1374) and DINOv2 at 518² take
+    128 queries a CTA, the rest 64 with each tile's keys split between two
+    warps; two launches agree bit for bit."""
     q, k, v = _qkv(rng, dev, dtype, b=b, n=n, h=h)
     before = kernels.LAUNCHES["flash_attn"]
     got = fa.fused_attention(q, k, v, 0.125, use_flash=True)
@@ -433,6 +437,40 @@ def test_flash_attn_kernel_matches_plain(dev, rng, dtype, n, b, h):
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
     assert torch.equal(fa.fused_attention(qc, kc, vc, 0.125, use_flash=True).float(),
                        got)
+
+
+def test_float32_attention_takes_the_kernel_without_use_flash(dev, rng):
+    """float32 at head dim 64 on the card launches the kernel whatever
+    use_flash says, once a call, within 1e-5 of the einsum form (summation
+    order and ex2.approx against expf), and counts no score bytes."""
+    from cmdiad_tpu_torch import tracing
+    q, k, v = _qkv(rng, dev, torch.float32, b=2, n=785, h=3)
+    before = kernels.LAUNCHES["flash_attn"]
+    tracing.reset_counters()
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tracing.predict_call(2):
+            got = fa.fused_attention(q, k, v, 0.125, use_flash=False,
+                                     score_counter="scores")
+    assert kernels.LAUNCHES["flash_attn"] == before + 1
+    assert tracing.counters()["scores"] == 0
+    tracing.reset_counters()
+    torch.testing.assert_close(got, fa._einsum_attention(q, k, v, 0.125),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["head_dim_32", "bfloat16", "requires_grad"])
+def test_attention_outside_the_float32_route_keeps_the_einsum_form(dev, rng, case):
+    d, dtype = (32, torch.float32) if case == "head_dim_32" else (
+        64, torch.bfloat16 if case == "bfloat16" else torch.float32)
+    x = torch.from_numpy(rng.normal(size=(2, 135, 3, 3, d)).astype(np.float32))
+    x = x.to(dev, dtype).requires_grad_(case == "requires_grad")
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    before = kernels.LAUNCHES["flash_attn"]
+    got = fa.fused_attention(q, k, v, 0.125, use_flash=False)
+    assert kernels.LAUNCHES["flash_attn"] == before
+    assert torch.equal(got, fa._einsum_attention(q, k, v, 0.125))
+    assert got.requires_grad == (case == "requires_grad")
 
 
 @pytest.mark.parametrize("m,k,n", [(128, 256, 128), (1024, 768, 2048),
@@ -487,7 +525,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
         i8.int8_dot(a, torch.zeros((64, 128), device=dev, dtype=torch.int8))
 
 
-DETECTION_KERNELS = {"": ("bank_min", "fps", "interp", "knn"),
+# float32 attention at head dim 64 (both small backbones) takes the kernel
+# on every path
+DETECTION_KERNELS = {"": ("bank_min", "flash_attn", "fps", "interp", "knn"),
                      "throughput": ("bank_min_int8", "flash_attn", "fps", "interp", "knn")}
 
 
@@ -552,8 +592,8 @@ def test_small_double_method_on_the_card(dev, path):
     assert np.abs(maps_gpu - maps_cpu).mean() <= tol[2] * scale
 
 
-MTFI_KERNELS = {"mtfi_ftof_xyz_main": {"bank_min", "fps", "interp", "knn"},
-                "mtfi_itof_rgb_main": {"bank_min"}}
+MTFI_KERNELS = {"mtfi_ftof_xyz_main": {"bank_min", "flash_attn", "fps", "interp", "knn"},
+                "mtfi_itof_rgb_main": {"bank_min", "flash_attn"}}
 
 
 @pytest.mark.parametrize("preset", list(MTFI_KERNELS))

@@ -19,8 +19,9 @@ serve a random fitted state; on the CPU at the tiny widths:
 On a card (``cuda``, skipped without one), at the configurations' full
 widths: ``host_syncs`` equals the synchronisations
 ``torch.cuda.set_sync_debug_mode("warn")`` reports over one warm call, the
-call launches FPS and the KNN once each, and the point path's sub-spans
-hold 90-100 % of ``xyz_patches``' device time.
+call launches FPS and the KNN once each and the attention kernel once a
+block of each backbone it runs, writing no scores, and the point path's
+sub-spans hold 90-100 % of ``xyz_patches``' device time.
 The file imports no JAX:
 
     python -m pytest -q -s --noconftest tests/test_torch_tracing.py
@@ -321,6 +322,11 @@ def test_card_syncs_and_span_split(preset):
                       "sub_ms": {n: 1e3 * v for n, v in sub.items()},
                       "sub_share": sum(sub.values()) / xyz}))
     assert c["calls"] == 1 and c["images"] == 8
+    # float32 attention at head dim 64 takes the kernel in every block
+    vit_depth = method.backbone.vit_config.depth if preset == "dual" else 0
+    assert kernels.LAUNCHES["flash_attn"] == vit_depth + method.backbone.pm_config.depth
+    assert c.get("vit_attn_score_bytes", 0) == 0 and ("vit_attn_score_bytes" in c) == (
+        preset == "dual"), c
     assert c["host_syncs"] == len(syncs), where
     # the whole batch is grouped through one FPS and one KNN launch
     assert kernels.LAUNCHES["fps"] == kernels.LAUNCHES["knn"] == 1, kernels.LAUNCHES
