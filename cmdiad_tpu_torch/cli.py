@@ -64,7 +64,7 @@ import torch.distributed as dist
 
 from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.config import Config, TrainConfig
-from cmdiad_tpu_torch.models import convert
+from cmdiad_tpu_torch.models import convert, names
 from cmdiad_tpu_torch.parallel.mesh import init_from_env
 
 
@@ -253,21 +253,28 @@ def cmd_train(args) -> dict:
     return record
 
 
-# convert-ckpt --kind -> the JAX-layout writer of a reference state dict
-_CONVERTERS = {
-    "vit": convert.vit_from_timm,
-    "point_mae": lambda sd: convert.point_mae_from_torch(convert.strip_pointmae_prefixes(sd)),
-    "ftof_mlp": convert.ftof_mlp_from_torch,
-    "ftof_conv": convert.ftof_conv_from_torch,
-    "ftoi_mlp": convert.ftoi_mlp_from_torch,
-    "ftoi_conv": convert.ftoi_conv_from_torch,
-    "hrnet": convert.hrnet_from_torch,
+# convert-ckpt --kind -> the name table of a reference state dict, told by
+# its keys; the backbones at the JAX CLI's depth of 12, which keeps blocks
+# 0-11 of a deeper ViT, as that CLI does
+_TABLES = {
+    "vit": lambda sd: names.vit(layer_scale="blocks.0.ls1.gamma" in sd,
+                                registers="reg_token" in sd,
+                                qkv_bias="blocks.0.attn.qkv.bias" in sd),
+    "point_mae": lambda sd: names.point_mae(point_bert="reduce_dim.weight" in sd),
+    "ftof_mlp": lambda sd: names.ftof_mlp(),
+    "ftof_conv": lambda sd: names.ftof_conv(),
+    "ftoi_mlp": lambda sd: names.ftoi_mlp(),
+    "ftoi_conv": lambda sd: names.ftoi_conv(),
+    "hrnet": lambda sd: names.hrnet(),
 }
 
 
 def cmd_convert_ckpt(args) -> None:
     from cmdiad_tpu_torch.train.checkpoint import save_pytree
-    tree = _CONVERTERS[args.kind](convert.load_torch_checkpoint(args.src))
+    sd = convert.load_torch_checkpoint(args.src)
+    if args.kind == "point_mae":
+        sd = convert.strip_pointmae_prefixes(sd)
+    tree = names.to_flax(_TABLES[args.kind](sd), sd)
     save_pytree(args.dst, tree, meta={"kind": args.kind, "src": args.src})
     print(f"converted {args.src} -> {args.dst}")
 
@@ -315,7 +322,7 @@ def main(argv=None):
     p = sub.add_parser("convert-ckpt", help="torch .pth -> the JAX package's .npz params")
     p.add_argument("--src", required=True)
     p.add_argument("--dst", required=True)
-    p.add_argument("--kind", required=True, choices=list(_CONVERTERS))
+    p.add_argument("--kind", required=True, choices=list(_TABLES))
     p.set_defaults(fn=cmd_convert_ckpt)
     p = sub.add_parser("preprocess", help="MVTec 3D-AD in-place preprocessing")
     p.add_argument("--dataset_path", "-d", required=True)

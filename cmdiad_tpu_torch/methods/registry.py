@@ -10,11 +10,11 @@ import torch
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.device import resolve_device
 from cmdiad_tpu_torch.methods import variants
-from cmdiad_tpu_torch.models import bridge, convert
+from cmdiad_tpu_torch.models import convert, names
 from cmdiad_tpu_torch.models.backbone import DualBackbone, init_weights
 from cmdiad_tpu_torch.models.hallucination import FtoFConv, FtoFMlp, FtoIConv, FtoIMlp
 from cmdiad_tpu_torch.models.hrnet import HRNet
-from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
+from cmdiad_tpu_torch.models.point_mae import POINT_CONFIGS
 from cmdiad_tpu_torch.models.vit import VIT_CONFIGS
 from cmdiad_tpu_torch.train.checkpoint import load_pytree
 
@@ -43,26 +43,30 @@ def build_fusion(cfg: Config, backbone: DualBackbone, device="cuda"):
     xyz_dim = backbone.pm_config.out_dim
     rgb_dim = backbone.vit_config.embed_dim
     main_dim = rgb_dim if cfg.main_modality == "rgb" else xyz_dim
+    # each net with its name table, a function of the file's variables: the
+    # FtoF MLP's depth is counted from them
     if cfg.use_hn:
-        net, to_sd = FtoFMlp(xyz_dim, rgb_dim, dtype=dtype), bridge.ftof_mlp_state_dict
+        net = FtoFMlp(xyz_dim, rgb_dim, dtype=dtype)
+        table = lambda v: names.ftof_mlp(len(v["params"]["xyz_mlp"]))
     elif cfg.use_hn_conv:
-        net, to_sd = FtoFConv(xyz_dim, rgb_dim, dtype=dtype), bridge.ftof_conv_state_dict
+        net, table = FtoFConv(xyz_dim, rgb_dim, dtype=dtype), lambda v: names.ftof_conv()
     elif cfg.use_hn_from_rgb_mlp:
         net = FtoIMlp(main_dim, out_size=cfg.xyz_size, dtype=dtype)
-        to_sd = bridge.ftoi_mlp_state_dict
+        table = lambda v: names.ftoi_mlp()
     elif cfg.use_hn_from_rgb_conv:
         net = FtoIConv(main_dim, out_size=cfg.xyz_size, dtype=dtype)
-        to_sd = bridge.ftoi_conv_state_dict
+        table = lambda v: names.ftoi_conv()
     elif cfg.use_hrnet:
         net = HRNet(xyz_dim if cfg.main_modality == "rgb" else rgb_dim, dtype=dtype)
-        to_sd = bridge.hrnet_state_dict
+        table = lambda v: names.hrnet()
     else:
         return None
     path = cfg.fusion_module_path
     if path.endswith((".pth", ".pt")):
         convert.load_reference_state(net, convert.load_torch_checkpoint(path))
     elif path:
-        net.load_state_dict(to_sd(load_pytree(path)))
+        variables = load_pytree(path)
+        net.load_state_dict(names.to_torch(table(variables), variables))
     else:
         init_weights(net, cfg.seed + 2, fan_in_scaled=True)
     return net.to(resolve_device(device)).eval()
@@ -71,30 +75,27 @@ def build_fusion(cfg: Config, backbone: DualBackbone, device="cuda"):
 def load_backbone_params(cfg: Config, backbone: DualBackbone) -> None:
     """Load ``cfg.rgb_ckpt_path`` (timm names) into the ViT and
     ``cfg.xyz_ckpt_path`` (Point-MAE or Point-BERT, prefixes stripped as the
-    reference does) into the point transformer, in place."""
+    reference does) into the point transformer, in place; the transformer's
+    flavour picks the remap."""
     if cfg.rgb_ckpt_path:
         convert.load_named(backbone.vit, convert.load_torch_checkpoint(cfg.rgb_ckpt_path))
     if cfg.xyz_ckpt_path:
         sd = convert.load_torch_checkpoint(cfg.xyz_ckpt_path)
-        strip = (convert.strip_pointbert_prefixes if cfg.xyz_backbone_name == "Point_Bert"
+        strip = (convert.strip_pointbert_prefixes if backbone.point.with_cls
                  else convert.strip_pointmae_prefixes)
         convert.load_named(backbone.point, strip(sd))
     backbone.to(backbone.device)
 
 
 def build_backbone(cfg: Config, device="cuda") -> DualBackbone:
-    """The DualBackbone of a config: random weights from ``cfg.seed``, then
-    the configured checkpoints; the ViT takes ``cfg.rgb_size`` images.
-    ``xyz_backbone_name='tiny'`` is the JAX package's small Point-MAE (16
-    wide, 2 blocks, 2 heads); ``'Point_Bert'`` the encoder_dims=256 one."""
-    pm = dict(num_group=cfg.num_group, group_size=cfg.group_size)
-    if cfg.xyz_backbone_name == "tiny":
-        pm_config = PointMAEConfig(**pm, encoder_dims=16, trans_dim=16, depth=2,
-                                   num_heads=2, fetch_idx=(0, 1))
-    elif cfg.xyz_backbone_name == "Point_Bert":
-        pm_config = PointMAEConfig(**pm, encoder_dims=256)
-    else:
-        pm_config = PointMAEConfig(**pm)
+    """The DualBackbone of a config: the named entries of ``VIT_CONFIGS``
+    and ``POINT_CONFIGS`` (an unknown point name is Point-MAE), random
+    weights from ``cfg.seed``, then the configured checkpoints; the ViT
+    takes ``cfg.rgb_size`` images, the point transformer ``cfg.num_group``
+    groups of ``cfg.group_size``."""
+    pm_config = dataclasses.replace(
+        POINT_CONFIGS.get(cfg.xyz_backbone_name, POINT_CONFIGS["Point_MAE"]),
+        num_group=cfg.num_group, group_size=cfg.group_size)
     vit_config = dataclasses.replace(VIT_CONFIGS[cfg.rgb_backbone_name],
                                      img_size=cfg.rgb_size)
     backbone = DualBackbone(

@@ -19,9 +19,10 @@ from torch import nn
 
 from cmdiad_tpu_torch import tracing
 from cmdiad_tpu_torch.device import resolve_device
+from cmdiad_tpu_torch.models import names
 from cmdiad_tpu_torch.models.point_mae import (PointMAEConfig, PointTransformer,
                                                group_points)
-from cmdiad_tpu_torch.models.vit import VIT_CONFIGS, ViTConfig, VisionTransformer
+from cmdiad_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from cmdiad_tpu_torch.ops.interpolate import three_nn_interpolate
 from cmdiad_tpu_torch.ops.masked import compact_points, nonzero_point_mask
 from cmdiad_tpu_torch.ops.pooling import adaptive_avg_pool, avg3x3_then_adaptive_pool
@@ -57,9 +58,7 @@ def init_weights(module: nn.Module, seed: int, fan_in_scaled: bool = False) -> N
 class DualBackbone:
     """Frozen rgb + xyz feature extractor (reference ``models.Model``)."""
 
-    def __init__(self, rgb_backbone_name: str = "vit_base_patch8_224_dino",
-                 num_group: int = 1024, group_size: int = 128,
-                 compute_dtype: str = "float32",
+    def __init__(self, compute_dtype: str = "float32",
                  vit_config: Optional[ViTConfig] = None,
                  pm_config: Optional[PointMAEConfig] = None,
                  point_capacity: Optional[int] = 32768,
@@ -67,9 +66,8 @@ class DualBackbone:
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
-        self.vit_config = vit_config or VIT_CONFIGS[rgb_backbone_name]
-        self.pm_config = pm_config or PointMAEConfig(num_group=num_group,
-                                                     group_size=group_size)
+        self.vit_config = vit_config or ViTConfig()
+        self.pm_config = pm_config or PointMAEConfig()
         # valid points are compacted to a dense prefix of this many slots
         # before FPS/KNN when the grid has more cells; None disables
         self.point_capacity = point_capacity
@@ -154,3 +152,14 @@ class DualBackbone:
         if organized_pc is not None:
             out.update(self.xyz_patches(organized_pc, compact_pts, with_2828))
         return out
+
+
+def load_jax_params(backbone: DualBackbone, params) -> None:
+    """Load a JAX ``DualBackbone`` parameter pytree (numpy leaves) into
+    ``backbone`` in place, through the backbones' tables in ``models.names``."""
+    v, p = backbone.vit_config, backbone.pm_config
+    backbone.vit.load_state_dict(names.to_torch(
+        names.vit(v.depth, v.layer_scale, v.num_reg_tokens > 0, v.qkv_bias), params["vit"]))
+    backbone.point.load_state_dict(names.to_torch(
+        names.point_mae(p.depth, backbone.point.with_cls, p.qkv_bias), params["point"]))
+    backbone.to(backbone.device)

@@ -1,15 +1,18 @@
-"""One name table per MTFI fusion net: torch key <-> flax path.
+"""One name table per model: torch key <-> flax path.
 
-Each table lists, for every entry of a net's PyTorch state dict, the path
+Each table lists, for every entry of a model's PyTorch state dict, the path
 of the same array in the JAX package's flax variables and how its layout
 changes: ``"linear"`` (torch (out, in) <-> flax Dense kernel (in, out)),
-``"conv"`` (torch OIHW <-> flax HWIO) or ``None`` (same layout;
+``"conv"`` (torch OIHW <-> flax HWIO), ``"conv1d"`` (a kernel-1 Conv1d's
+(out, in, 1) <-> flax Dense kernel (in, out)) or ``None`` (same layout;
 LayerNorm/BatchNorm ``weight`` <-> ``scale``, BatchNorm running
-statistics <-> ``batch_stats`` ``mean``/``var``).  Every direction comes
-from the table:
+statistics <-> ``batch_stats`` ``mean``/``var``).  The backbones (``vit``,
+``point_mae``) and the MTFI fusion nets each have one.  Every direction
+comes from the table:
 
-  * ``to_torch``: flax variables -> a state dict (``models.bridge``, and
-    the JAX package's npz through ``fusion_module_path``);
+  * ``to_torch``: flax variables -> a state dict (the JAX package's
+    parameters through ``models.backbone.load_jax_params``, and its npz
+    through ``fusion_module_path``);
   * ``to_flax``: a state dict -> flax variables (``convert-ckpt``, and the
     trainer's checkpoints: ``params``, ``batch_stats`` and the optimizer's
     per-parameter trees, which share the ``params`` paths).
@@ -26,13 +29,8 @@ Entry = Tuple[str, Tuple[str, ...], Optional[str]]
 Table = List[Entry]
 
 
-def _linear(tk: str, fp: Tuple[str, ...], bias: bool = True) -> Table:
-    out = [(f"{tk}.weight", ("params", *fp, "kernel"), "linear")]
-    return out + ([(f"{tk}.bias", ("params", *fp, "bias"), None)] if bias else [])
-
-
-def _conv(tk: str, fp: Tuple[str, ...], bias: bool = True) -> Table:
-    out = [(f"{tk}.weight", ("params", *fp, "kernel"), "conv")]
+def _kernel(tk: str, fp: Tuple[str, ...], kind: str, bias: bool = True) -> Table:
+    out = [(f"{tk}.weight", ("params", *fp, "kernel"), kind)]
     return out + ([(f"{tk}.bias", ("params", *fp, "bias"), None)] if bias else [])
 
 
@@ -46,6 +44,59 @@ def _batchnorm(tk: str, fp: Tuple[str, ...]) -> Table:
                             (f"{tk}.running_var", ("batch_stats", *fp, "var"), None)]
 
 
+def _arrays(*keys: str) -> Table:
+    return [(k, ("params", k), None) for k in keys]
+
+
+def _block(tk: str, fp: str, nested: bool, qkv_bias: bool) -> Table:
+    """A pre-LN block's ``norm{1,2}``, ``attn.{qkv,proj}`` and
+    ``mlp.fc{1,2}``: the ViT's flax block nests them (``attn/qkv``),
+    Point-MAE's joins them (``attn_qkv``)."""
+    t = _norm(f"{tk}.norm1", (fp, "norm1")) + _norm(f"{tk}.norm2", (fp, "norm2"))
+    for name in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+        path = (fp, *name.split(".")) if nested else (fp, name.replace(".", "_"))
+        t += _kernel(f"{tk}.{name}", path, "linear", bias=qkv_bias or name != "attn.qkv")
+    return t
+
+
+def vit(depth: int = 12, layer_scale: bool = False, registers: bool = False,
+        qkv_bias: bool = True) -> Table:
+    """timm's ViT: ``patch_embed.proj``, ``cls_token``, ``pos_embed`` (and
+    DINOv2's ``reg_token``), ``blocks.{i}`` <-> ``blocks_{i}`` (with
+    DINOv2's LayerScale ``ls{1,2}.gamma`` <-> ``ls{1,2}``) and ``norm``."""
+    t = _kernel("patch_embed.proj", ("patch_embed",), "conv")
+    t += _arrays("cls_token", "pos_embed", *(("reg_token",) if registers else ()))
+    for i in range(depth):
+        t += _block(f"blocks.{i}", f"blocks_{i}", True, qkv_bias)
+        if layer_scale:
+            t += [(f"blocks.{i}.ls{j}.gamma", ("params", f"blocks_{i}", f"ls{j}"), None)
+                  for j in (1, 2)]
+    return t + _norm("norm", ("norm",))
+
+
+def point_mae(depth: int = 12, point_bert: bool = False,
+              qkv_bias: bool = False) -> Table:
+    """Point-MAE's ``PointTransformer``: the encoder's kernel-1 convs
+    ``{first,second}_conv.{0,3}`` <-> ``encoder/{first,second}_conv_{0,3}``
+    and BatchNorms ``.1`` (statistics in ``batch_stats``), ``pos_embed.{0,2}``
+    <-> ``pos_embed_{0,2}``, ``blocks.blocks.{i}`` <-> ``blocks_{i}`` and
+    ``norm``; Point-BERT adds ``reduce_dim``, ``cls_token`` and ``cls_pos``.
+    Without ``qkv_bias`` a checkpoint's qkv bias is dropped, as the
+    reference's non-strict load drops it."""
+    t: Table = []
+    for conv in ("first_conv", "second_conv"):
+        t += _kernel(f"encoder.{conv}.0", ("encoder", f"{conv}_0"), "conv1d")
+        t += _batchnorm(f"encoder.{conv}.1", ("encoder", f"{conv}_1"))
+        t += _kernel(f"encoder.{conv}.3", ("encoder", f"{conv}_3"), "conv1d")
+    for j in (0, 2):
+        t += _kernel(f"pos_embed.{j}", (f"pos_embed_{j}",), "linear")
+    if point_bert:
+        t += _kernel("reduce_dim", ("reduce_dim",), "linear") + _arrays("cls_token", "cls_pos")
+    for i in range(depth):
+        t += _block(f"blocks.blocks.{i}", f"blocks_{i}", False, qkv_bias)
+    return t + _norm("norm", ("norm",))
+
+
 def ftof_mlp(depth: int = 1) -> Table:
     """``FtoFMlp``: ``{side}_norm``, ``{side}_mlp.mlp_module.{d}.fc{1,2,3}``
     <-> ``{side}_mlp/block_{d}/fc{1,2,3}``."""
@@ -54,8 +105,8 @@ def ftof_mlp(depth: int = 1) -> Table:
         t += _norm(f"{side}_norm", (f"{side}_norm",))
         for d in range(depth):
             for fc in ("fc1", "fc2", "fc3"):
-                t += _linear(f"{side}_mlp.mlp_module.{d}.{fc}",
-                             (f"{side}_mlp", f"block_{d}", fc))
+                t += _kernel(f"{side}_mlp.mlp_module.{d}.{fc}",
+                             (f"{side}_mlp", f"block_{d}", fc), "linear")
     return t
 
 
@@ -65,7 +116,8 @@ def ftof_conv() -> Table:
     t: Table = []
     for side in ("xyz", "rgb"):
         for j in range(4):
-            t += _conv(f"{side}_conv.{3 * j}", (f"{side}_conv", f"conv_{j}"), bias=False)
+            t += _kernel(f"{side}_conv.{3 * j}", (f"{side}_conv", f"conv_{j}"), "conv",
+                         bias=False)
         for j in range(3):
             t += _batchnorm(f"{side}_conv.{3 * j + 1}", (f"{side}_conv", f"bn_{j}"))
     return t
@@ -76,7 +128,7 @@ def ftoi_mlp() -> Table:
     ``mlp_{0..3}``."""
     t = _norm("rgb_norm", ("norm",))
     for j in range(4):
-        t += _linear(f"mlp.{2 * j}", (f"mlp_{j}",))
+        t += _kernel(f"mlp.{2 * j}", (f"mlp_{j}",), "linear")
     return t
 
 
@@ -85,7 +137,7 @@ def ftoi_conv() -> Table:
     entry)."""
     t: Table = []
     for j in (1, 2, 3, 4):
-        t += _conv(f"conv{j}", (f"conv{j}",))
+        t += _kernel(f"conv{j}", (f"conv{j}",), "conv")
     return t
 
 
@@ -94,18 +146,18 @@ def hrnet() -> Table:
     downsample pair <-> ``down_conv``/``down_bn``) and ``final_layer``."""
     t: Table = []
     for i in (1, 2):
-        t += _conv(f"conv{i}", (f"conv{i}",), bias=False)
+        t += _kernel(f"conv{i}", (f"conv{i}",), "conv", bias=False)
         t += _batchnorm(f"bn{i}", (f"bn{i}",))
     for layer in (1, 2, 3):
         for i in range(4):
             tk, fp = f"layer{layer}.{i}", f"layer{layer}_{i}"
             for j in (1, 2, 3):
-                t += _conv(f"{tk}.conv{j}", (fp, f"conv{j}"), bias=False)
+                t += _kernel(f"{tk}.conv{j}", (fp, f"conv{j}"), "conv", bias=False)
                 t += _batchnorm(f"{tk}.bn{j}", (fp, f"bn{j}"))
             if layer == 1 and i == 0:
-                t += _conv(f"{tk}.downsample.0", (fp, "down_conv"), bias=False)
+                t += _kernel(f"{tk}.downsample.0", (fp, "down_conv"), "conv", bias=False)
                 t += _batchnorm(f"{tk}.downsample.1", (fp, "down_bn"))
-    return t + _conv("final_layer", ("final_layer",))
+    return t + _kernel("final_layer", ("final_layer",), "conv")
 
 
 def _to_torch_layout(kind: Optional[str], a: np.ndarray) -> np.ndarray:
@@ -113,6 +165,8 @@ def _to_torch_layout(kind: Optional[str], a: np.ndarray) -> np.ndarray:
         return a.T
     if kind == "conv":
         return a.transpose(3, 2, 0, 1)
+    if kind == "conv1d":
+        return a.T[:, :, None]
     return a
 
 
@@ -121,6 +175,8 @@ def _to_flax_layout(kind: Optional[str], a: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(a.T)
     if kind == "conv":
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if kind == "conv1d":
+        return np.ascontiguousarray(a[:, :, 0].T)
     return a
 
 

@@ -56,6 +56,17 @@ class PointMAEConfig:
         return self.trans_dim * len(self.fetch_idx)
 
 
+# by ``xyz_backbone_name``; ``build_backbone`` sets the grouping and takes
+# Point-MAE for a name not here, as the JAX package's registry does
+POINT_CONFIGS = {
+    "Point_MAE": PointMAEConfig(),
+    "Point_Bert": PointMAEConfig(encoder_dims=256),
+    # the JAX package's small Point-MAE
+    "tiny": PointMAEConfig(encoder_dims=16, trans_dim=16, depth=2, num_heads=2,
+                           fetch_idx=(0, 1)),
+}
+
+
 def group_points(points, mask, num_group: int, group_size: int):
     """Masked FPS + KNN grouping indices: points (B, P, 3), mask (B, P) ->
     centers (B, G, 3), ori_idx (B, G, M), center_idx (B, G)."""

@@ -178,11 +178,11 @@ def jax_outputs() -> dict:
     from cmdiad_tpu.models.backbone import DualBackbone as JaxBackbone
     from cmdiad_tpu.models.point_mae import PointMAEConfig as JaxPM
     from cmdiad_tpu.models.vit import ViTConfig as JaxViT
-    from cmdiad_tpu_torch.models import convert
+    from cmdiad_tpu_torch.models import names
 
     _, sds = port_backbone("cpu")
-    params = {"vit": convert.vit_from_timm(sds["vit"], depth=DEPTH),
-              "point": convert.point_mae_from_torch(sds["point"], depth=DEPTH)}
+    params = {"vit": names.to_flax(names.vit(DEPTH), sds["vit"]),
+              "point": names.to_flax(names.point_mae(DEPTH), sds["point"])}
     jb = JaxBackbone(vit_config=JaxViT(**vit_kwargs()), pm_config=JaxPM(**point_kwargs()),
                      compute_dtype="bfloat16", use_pallas=False, use_flash=True,
                      image_size=SIZE)

@@ -42,8 +42,7 @@ from cmdiad_tpu_torch import cli
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.data.synthetic import make_synthetic_samples
 from cmdiad_tpu_torch.methods import registry
-from cmdiad_tpu_torch.models.backbone import DualBackbone, init_weights
-from cmdiad_tpu_torch.models.bridge import load_jax_params
+from cmdiad_tpu_torch.models.backbone import DualBackbone, init_weights, load_jax_params
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
 from cmdiad_tpu_torch.models.vit import ViTConfig
 from cmdiad_tpu_torch.runner import CMDIADRunner

@@ -43,8 +43,7 @@ from cmdiad_tpu.runner import run_detection as jax_run_detection
 from cmdiad_tpu_torch import cli
 from cmdiad_tpu_torch.config import Config, method_preset
 from cmdiad_tpu_torch.methods.registry import build_method
-from cmdiad_tpu_torch.models.backbone import DualBackbone
-from cmdiad_tpu_torch.models.bridge import load_jax_params
+from cmdiad_tpu_torch.models.backbone import DualBackbone, load_jax_params
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
 from cmdiad_tpu_torch.models.vit import ViTConfig
 from cmdiad_tpu_torch.runner import CMDIADRunner, run_detection

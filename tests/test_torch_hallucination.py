@@ -2,10 +2,10 @@
 
 Each net's JAX variables (flax init from a fixed key, BatchNorm statistics,
 LayerNorm and BatchNorm affines set to random values so every one of them
-matters) are carried into the port's module by ``models.bridge``; both run
-float32 on the same numpy inputs.  Forwards agree to 1e-4 of the output's
-largest value (summation order, and flax's E[x²]−E[x]² LayerNorm variance
-against PyTorch's), as the backbone tests hold them.
+matters) are carried into the port's module by its ``models.names``
+table; both run float32 on the same numpy inputs.  Forwards agree to 1e-4
+of the output's largest value (summation order, and flax's E[x²]−E[x]²
+LayerNorm variance against PyTorch's), as the backbone tests hold them.
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from cmdiad_tpu.models import hallucination as jh
 from cmdiad_tpu.models.hrnet import HRNet as JaxHRNet
 from cmdiad_tpu.ops.pooling import bicubic_resize as jax_bicubic
-from cmdiad_tpu_torch.models import bridge
+from cmdiad_tpu_torch.models import names
 from cmdiad_tpu_torch.models import hallucination as th
 from cmdiad_tpu_torch.models.hrnet import HRNet
 from cmdiad_tpu_torch.ops.pooling import bicubic_resize
@@ -75,7 +75,7 @@ def test_ftof_mlp_both_directions(rng, depth):
     variables = _randomize(net.init(jax.random.PRNGKey(0), jnp.asarray(xyz),
                                     jnp.asarray(rgb)))
     port = _port(th.FtoFMlp(xyz_dim, rgb_dim, mlp_depth=depth),
-                 bridge.ftof_mlp_state_dict(variables))
+                 names.to_torch(names.ftof_mlp(depth), variables))
     assert port.xyz_mlp.mlp_module[0].fc1.out_features == int(xyz_dim * 2.5)
     for feat, out_type, width in ((rgb, "xyz", xyz_dim), (xyz, "rgb", rgb_dim)):
         want = net.apply(variables, jnp.asarray(feat), out_type, method="generate")
@@ -96,7 +96,7 @@ def test_ftof_conv_both_directions(rng):
              for i, (f, t) in enumerate(((rgb, "xyz"), (xyz, "rgb")))]
     variables = _randomize({c: {**parts[0][c], **parts[1][c]}
                             for c in ("params", "batch_stats")})
-    port = _port(th.FtoFConv(xyz_dim, rgb_dim), bridge.ftof_conv_state_dict(variables))
+    port = _port(th.FtoFConv(xyz_dim, rgb_dim), names.to_torch(names.ftof_conv(), variables))
     for feat, out_type in ((rgb, "xyz"), (xyz, "rgb")):
         want = net.apply(variables, jnp.asarray(feat), out_type, method="generate")
         got = port.generate(torch.from_numpy(feat), out_type)
@@ -112,10 +112,10 @@ def test_ftoi_nets(rng, flavour):
     variables = _randomize(net.init(jax.random.PRNGKey(0), jnp.asarray(feat)))
     if flavour == "mlp":
         port = _port(th.FtoIMlp(in_dim, out_size=out_size),
-                     bridge.ftoi_mlp_state_dict(variables))
+                     names.to_torch(names.ftoi_mlp(), variables))
     else:
         port = _port(th.FtoIConv(in_dim, out_size=out_size),
-                     bridge.ftoi_conv_state_dict(variables))
+                     names.to_torch(names.ftoi_conv(), variables))
     want = net.apply(variables, jnp.asarray(feat))
     got = port(torch.from_numpy(feat))
     assert got.shape == (2, out_size, out_size, 3)
@@ -125,15 +125,15 @@ def test_ftoi_nets(rng, flavour):
 @pytest.mark.parametrize("flavour", ["mlp", "conv"])
 def test_ftoi_nets_one_channel(rng, flavour):
     """``out_channels=1`` (the trainer's ``estimate_depth``), JAX variables
-    carried across: the bridge takes the width from the arrays."""
+    carried across: the table takes the width from the arrays."""
     in_dim, out_size = 24, 64
-    jax_cls, port_cls, to_sd = ((jh.FtoIMlp, th.FtoIMlp, bridge.ftoi_mlp_state_dict)
+    jax_cls, port_cls, table = ((jh.FtoIMlp, th.FtoIMlp, names.ftoi_mlp())
                                 if flavour == "mlp" else
-                                (jh.FtoIConv, th.FtoIConv, bridge.ftoi_conv_state_dict))
+                                (jh.FtoIConv, th.FtoIConv, names.ftoi_conv()))
     net = jax_cls(in_dim, out_channels=1, out_size=out_size)
     feat = rng.normal(size=(2, 3136, in_dim)).astype(np.float32)
     variables = _randomize(net.init(jax.random.PRNGKey(0), jnp.asarray(feat)))
-    port = _port(port_cls(in_dim, out_channels=1, out_size=out_size), to_sd(variables))
+    port = _port(port_cls(in_dim, out_channels=1, out_size=out_size), names.to_torch(table, variables))
     want = net.apply(variables, jnp.asarray(feat))
     got = port(torch.from_numpy(feat))
     assert got.shape == want.shape == (2, out_size, out_size, 1)
@@ -145,7 +145,7 @@ def test_hrnet(rng):
     net = JaxHRNet(out_dim)
     img = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
     variables = _randomize(net.init(jax.random.PRNGKey(0), jnp.asarray(img)))
-    port = _port(HRNet(out_dim), bridge.hrnet_state_dict(variables))
+    port = _port(HRNet(out_dim), names.to_torch(names.hrnet(), variables))
     want = net.apply(variables, jnp.asarray(img))
     got = port(torch.from_numpy(img))
     assert got.shape == (2, 16, 16, out_dim)

@@ -1,5 +1,5 @@
 """The port's backbones against the JAX package's, with the JAX random
-parameters carried across by ``models.bridge``.
+parameters carried across by ``models.backbone.load_jax_params``.
 
 float32 on both sides: features agree to about 1e-5 relative (summation
 order, and Flax's E[x²]−E[x]² LayerNorm variance against PyTorch's).
@@ -22,8 +22,8 @@ from cmdiad_tpu.data.synthetic import _blob_pc
 from cmdiad_tpu.models.backbone import DualBackbone as JaxBackbone
 from cmdiad_tpu.models.point_mae import PointMAEConfig as JaxPM
 from cmdiad_tpu.models.vit import ViTConfig as JaxViT
-from cmdiad_tpu_torch.models.backbone import DualBackbone
-from cmdiad_tpu_torch.models.bridge import load_jax_params, vit_state_dict
+from cmdiad_tpu_torch.models import names
+from cmdiad_tpu_torch.models.backbone import DualBackbone, load_jax_params
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
 from cmdiad_tpu_torch.models.vit import ViTConfig
 
@@ -55,7 +55,8 @@ def pair():
 
 def test_bridge_covers_every_parameter(pair):
     _, params, tb = pair
-    assert set(vit_state_dict(params["vit"])) == set(tb.vit.state_dict())
+    table = names.vit(SMALL_VIT["depth"])
+    assert set(names.to_torch(table, params["vit"])) == set(tb.vit.state_dict())
     n_jax = sum(np.size(x) for x in jax.tree.leaves(params))
     n_port = sum(t.numel() for m in (tb.vit, tb.point)
                  for k, t in m.state_dict().items() if "num_batches" not in k)

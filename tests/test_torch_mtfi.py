@@ -46,8 +46,8 @@ from cmdiad_tpu_torch.config import method_preset
 from cmdiad_tpu_torch.data.loader import stack_batches
 from cmdiad_tpu_torch.data.synthetic import make_synthetic_samples
 from cmdiad_tpu_torch.methods import registry
-from cmdiad_tpu_torch.models import bridge
-from cmdiad_tpu_torch.models.backbone import DualBackbone
+from cmdiad_tpu_torch.models import names
+from cmdiad_tpu_torch.models.backbone import DualBackbone, load_jax_params
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
 from cmdiad_tpu_torch.models.vit import ViTConfig
 from cmdiad_tpu_torch.ops.coreset import coreset_select
@@ -100,7 +100,7 @@ def _backbones(dtype="float32", use_flash=False):
     tb = DualBackbone(vit_config=ViTConfig(**SMALL_VIT),
                       pm_config=PointMAEConfig(**SMALL_PM), compute_dtype=dtype,
                       use_flash=use_flash, device="cpu")
-    bridge.load_jax_params(tb, params)
+    load_jax_params(tb, params)
     return jb, params, tb
 
 
@@ -120,10 +120,10 @@ def _recording(mp, module):
 def _bridged_fusion(cfg, tb, jax_vars):
     """The port's fusion net of ``cfg`` carrying the JAX net's variables."""
     net = registry.build_fusion(cfg, tb, "cpu")
-    to_sd = (bridge.ftof_mlp_state_dict if cfg.use_hn
-             else bridge.hrnet_state_dict if cfg.use_hrnet
-             else bridge.ftoi_conv_state_dict)
-    net.load_state_dict(to_sd(jax.device_get(jax_vars)))
+    variables = jax.device_get(jax_vars)
+    table = (names.ftof_mlp(len(variables["params"]["xyz_mlp"])) if cfg.use_hn
+             else names.hrnet() if cfg.use_hrnet else names.ftoi_conv())
+    net.load_state_dict(names.to_torch(table, variables))
     return net
 
 

@@ -16,7 +16,7 @@ from cmdiad_tpu.config import Config as JaxConfig
 from cmdiad_tpu.methods import registry as jax_registry
 from cmdiad_tpu.runner import CMDIADRunner as JaxRunner
 from cmdiad_tpu_torch.data.synthetic import make_synthetic_samples
-from cmdiad_tpu_torch.models import bridge
+from cmdiad_tpu_torch.models import names
 from cmdiad_tpu_torch.parallel import launch
 
 import torch_parallel_workers as workers
@@ -39,7 +39,9 @@ def runs(jax_bf16_selection, tmp_path_factory):  # noqa: F811
     jb, params = jax_backbone(SHALLOW_VIT, SHALLOW_PM)
     jcfg = JaxConfig(**FTOF)
     jnet, jvars = jax_registry.build_fusion(jcfg, jb)
-    fusion_sd = bridge.ftof_mlp_state_dict(jax.device_get(jvars))
+    host_vars = jax.device_get(jvars)
+    fusion_sd = names.to_torch(names.ftof_mlp(len(host_vars["params"]["xyz_mlp"])),
+                               host_vars)
     own = spawn_beside(workers.detect, 2, "gloo", ["cpu"] * 2,
                        args=(FTOF, SHALLOW_VIT, SHALLOW_PM, params, FEW, fusion_sd))
     train, test = make_synthetic_samples(**FEW)

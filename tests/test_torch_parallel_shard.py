@@ -84,8 +84,7 @@ def test_sharded_state_round_trip(runs):
     assert sorted(os.listdir(os.path.dirname(saved))) == ["jax_sharded.npz",
                                                           "port_sharded.npz"]
     # one device reads the whole bank back
-    from cmdiad_tpu_torch.models.backbone import DualBackbone
-    from cmdiad_tpu_torch.models.bridge import load_jax_params
+    from cmdiad_tpu_torch.models.backbone import DualBackbone, load_jax_params
     from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
     from cmdiad_tpu_torch.models.vit import ViTConfig
     bb = DualBackbone(vit_config=ViTConfig(**SMALL_VIT), pm_config=PointMAEConfig(**SMALL_PM),

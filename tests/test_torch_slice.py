@@ -37,8 +37,7 @@ from cmdiad_tpu.runner import CMDIADRunner as JaxRunner
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.data.loader import stack_batches
 from cmdiad_tpu_torch.data.synthetic import make_synthetic_samples
-from cmdiad_tpu_torch.models.backbone import DualBackbone
-from cmdiad_tpu_torch.models.bridge import load_jax_params
+from cmdiad_tpu_torch.models.backbone import DualBackbone, load_jax_params
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
 from cmdiad_tpu_torch.models.vit import ViTConfig
 from cmdiad_tpu_torch.ops.scoring import bank_nn_table

@@ -36,8 +36,7 @@ from cmdiad_tpu_torch import prng
 from cmdiad_tpu_torch.config import Config
 from cmdiad_tpu_torch.data import png
 from cmdiad_tpu_torch.fusion import ocsvm
-from cmdiad_tpu_torch.models.backbone import DualBackbone
-from cmdiad_tpu_torch.models.bridge import load_jax_params
+from cmdiad_tpu_torch.models.backbone import DualBackbone, load_jax_params
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
 from cmdiad_tpu_torch.models.vit import ViTConfig
 from cmdiad_tpu_torch.ops import blur

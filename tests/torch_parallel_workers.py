@@ -23,8 +23,7 @@ from cmdiad_tpu_torch.data.loader import stack_batches
 from cmdiad_tpu_torch.data.synthetic import make_synthetic_samples
 from cmdiad_tpu_torch.methods.registry import build_fusion, build_method
 from cmdiad_tpu_torch.models import names
-from cmdiad_tpu_torch.models.backbone import DualBackbone
-from cmdiad_tpu_torch.models.bridge import load_jax_params
+from cmdiad_tpu_torch.models.backbone import DualBackbone, load_jax_params
 from cmdiad_tpu_torch.models.hallucination import sync_batch_norm
 from cmdiad_tpu_torch.models.point_mae import PointMAEConfig
 from cmdiad_tpu_torch.models.vit import ViTConfig
