@@ -55,7 +55,7 @@ import functools
 import numpy as np
 import torch
 
-from cmdiad_tpu_torch import kernels, prng
+from cmdiad_tpu_torch import kernels, prng, tracing
 
 BACKENDS = ("sklearn", "jax")
 
@@ -94,6 +94,24 @@ class SGDOneClassSVM:
         self.coef_ = w.reshape(1, -1)
         self.offset_ = np.asarray([1.0 - b])
         return self
+
+    @property
+    def coef_(self):
+        return self._coef
+
+    @coef_.setter
+    def coef_(self, value):
+        self._coef = value
+        self._coef_on_device = None
+
+    def device_coef(self) -> torch.Tensor:
+        """``coef_`` as a float32 vector on ``device``: uploaded on the first
+        request after ``coef_`` changes (``fit``, ``load_weights``), then
+        kept, so a predict call reads it without a crossing."""
+        if self._coef_on_device is None:
+            self._coef_on_device = tracing.to_device(
+                np.asarray(self._coef).reshape(-1), self.device, torch.float32)
+        return self._coef_on_device
 
     def score_samples(self, x: np.ndarray) -> np.ndarray:
         """x·coef (sklearn's score_samples for this model)."""

@@ -148,7 +148,9 @@ class MemoryBankMethod:
     def upload(self, batch: dict, keys=None) -> Dict[str, torch.Tensor]:
         """The sample arrays of a stacked batch under ``keys`` (default
         ``needed_keys``) on the device; data-parallel, this rank's block of
-        them (``parallel.mesh.shard_batch``)."""
+        them (``parallel.mesh.shard_batch``).  The copies do not block the
+        host (``tracing.stage``), and the image goes first, so that its
+        copy runs while the host stages the clouds."""
         keys = self.needed_keys if keys is None else keys
         out = {}
         for k in _SAMPLE_KEYS:
@@ -156,7 +158,7 @@ class MemoryBankMethod:
                 arr = np.asarray(batch[k])
                 if self.dp_mesh is not None:
                     arr = shard_batch(arr, self.dp_mesh)[0]
-                out[k] = tracing.to_device(arr, self.device)
+                out[k] = tracing.stage(arr, self.device)
         return out
 
     def gather(self, rows: torch.Tensor, n: int) -> torch.Tensor:
@@ -311,18 +313,22 @@ class MemoryBankMethod:
         self.detect_fuser.fit(np.concatenate(s_rows, axis=0))
         self.seg_fuser.fit(np.concatenate(m_rows, axis=0))
         self.s_lib, self.s_map_lib = [], []
+        self._fuser_weights()                       # on the device now, not in a call
 
     def _fuser_weights(self):
-        return tuple(tracing.to_device(np.asarray(f.coef_).reshape(-1), self.device,
-                                       torch.float32)
-                     for f in (self.detect_fuser, self.seg_fuser))
+        """The two fusers' float32 weight vectors on the device, uploaded
+        once a fit or load (``SGDOneClassSVM.device_coef``)."""
+        return self.detect_fuser.device_coef(), self.seg_fuser.device_coef()
 
     def _record_predictions(self, s_vec, maps, batch):
         """Fuse λ-weighted (B, k) scores and (B, k, gt, gt) maps through the
-        linear fusers (score_samples = x·coef) and store the valid rows."""
+        linear fusers (score_samples = x·coef) and store the valid rows.
+        The scores and maps come back in one copy, the call's one host wait."""
         wd, ws = self._fuser_weights()
-        s = tracing.to_host(s_vec.to(torch.float32) @ wd).numpy()
-        fused = tracing.to_host(torch.einsum("bkxy,k->bxy", maps.to(torch.float32), ws)).numpy()
+        s = s_vec.to(torch.float32) @ wd
+        fused = torch.einsum("bkxy,k->bxy", maps.to(torch.float32), ws)
+        host = tracing.to_host(torch.cat([s[:, None], fused.flatten(1)], dim=1)).numpy()
+        s, fused = host[:, 0], host[:, 1:].reshape(fused.shape)
         for i in range(batch["_n"]):
             self._store_prediction(float(s[i]), fused[i].astype(np.float64),
                                    batch["gt"][i], batch["label"][i],
@@ -420,6 +426,7 @@ class MemoryBankMethod:
             self.detect_fuser.load_weights(z["detect_coef"], z["detect_offset"])
             self.seg_fuser.load_weights(z["seg_coef"], z["seg_offset"])
         self._bank_aux = {}
+        self._fuser_weights()                       # on the device now, not in a call
 
     # ---------------- metrics ----------------------------------------------
     def calculate_metrics(self) -> dict:

@@ -47,9 +47,10 @@ def _blur_matrix(n: int, radius: float, passes: int = 3) -> np.ndarray:
 
 
 def pil_gaussian_blur(img: torch.Tensor, radius: float = 4.0) -> torch.Tensor:
-    """Blur the trailing two axes of ``img`` ((..., H, W)) like PIL."""
-    mh = tracing.to_device(_blur_matrix(img.shape[-2], radius), img.device, img.dtype)
-    mw = tracing.to_device(_blur_matrix(img.shape[-1], radius), img.device, img.dtype)
+    """Blur the trailing two axes of ``img`` ((..., H, W)) like PIL; the
+    matrices stay on the device (``tracing.constant``)."""
+    mh = tracing.constant(img.device, img.dtype, _blur_matrix, img.shape[-2], radius)
+    mw = tracing.constant(img.device, img.dtype, _blur_matrix, img.shape[-1], radius)
     out = torch.einsum("oh,...hw->...ow", mh, img)
     return torch.einsum("ow,...hw->...ho", mw, out)
 
@@ -132,4 +133,4 @@ def quantized_knn_gaussian_blur(score_map: torch.Tensor,
     # a tensor divisor: CUDA divides by a Python scalar as a multiplication
     # by its reciprocal, which is not the correctly rounded quotient
     return (pil_gaussian_blur_u8(u8, radius).to(torch.float32)
-            / tracing.to_device(255.0, s.device, s.dtype) * safe)
+            / tracing.constant(s.device, s.dtype, float, 255.0) * safe)

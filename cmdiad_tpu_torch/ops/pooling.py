@@ -65,11 +65,12 @@ def _pool3x3_adaptive_matrix(n_in: int, n_out: int) -> np.ndarray:
     return (_adaptive_avg_matrix(n_in - 2, n_out) @ a3).astype(np.float32)
 
 
-def _apply_separable(x: torch.Tensor, mh: np.ndarray,
-                     mw: np.ndarray) -> torch.Tensor:
-    """Apply (Ho, Hi) and (Wo, Wi) matrices to the H/W axes of (..., H, W, C)."""
-    mh_t = tracing.to_device(mh, x.device, x.dtype)
-    mw_t = tracing.to_device(mw, x.device, x.dtype)
+def _apply_separable(x: torch.Tensor, build, out_hw) -> torch.Tensor:
+    """Apply ``build``'s (Ho, Hi) and (Wo, Wi) matrices to the H/W axes of
+    (..., H, W, C); the matrices stay on the device (``tracing.constant``)."""
+    oh, ow = _pair(out_hw)
+    mh_t = tracing.constant(x.device, x.dtype, build, x.shape[-3], oh)
+    mw_t = tracing.constant(x.device, x.dtype, build, x.shape[-2], ow)
     x = torch.einsum("oh,...hwc->...owc", mh_t, x)
     return torch.einsum("ow,...hwc->...hoc", mw_t, x)
 
@@ -80,16 +81,12 @@ def _pair(out_hw):
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
     """nn.AdaptiveAvgPool2d for channels-last inputs."""
-    oh, ow = _pair(out_hw)
-    return _apply_separable(x, _adaptive_avg_matrix(x.shape[-3], oh),
-                            _adaptive_avg_matrix(x.shape[-2], ow))
+    return _apply_separable(x, _adaptive_avg_matrix, out_hw)
 
 
 def bilinear_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
     """F.interpolate(mode='bilinear', align_corners=False), channels-last."""
-    oh, ow = _pair(out_hw)
-    return _apply_separable(x, _bilinear_matrix(x.shape[-3], oh),
-                            _bilinear_matrix(x.shape[-2], ow))
+    return _apply_separable(x, _bilinear_matrix, out_hw)
 
 
 def bicubic_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -106,6 +103,4 @@ def avg3x3_then_adaptive_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
     """3x3 stride-1 VALID average, then adaptive average pooling to
     ``out_hw``, as one separable matrix pair (the (H-2, W-2) intermediate
     never exists)."""
-    oh, ow = _pair(out_hw)
-    return _apply_separable(x, _pool3x3_adaptive_matrix(x.shape[-3], oh),
-                            _pool3x3_adaptive_matrix(x.shape[-2], ow))
+    return _apply_separable(x, _pool3x3_adaptive_matrix, out_hw)

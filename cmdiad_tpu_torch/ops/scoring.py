@@ -55,7 +55,7 @@ def mask_padding_cols(d: torch.Tensor, n_valid, col_offset: int = 0):
     """Force distances to bank padding rows (index >= n_valid) to a huge
     value: under cos_dist a constant padding row could win the min."""
     cols = torch.arange(d.shape[-1], device=d.device) + col_offset
-    return torch.where(cols < n_valid, d, tracing.to_device(_FAR, d.device))
+    return torch.where(cols < n_valid, d, tracing.constant(d.device, None, float, _FAR))
 
 
 def bank_min_dist(patch: torch.Tensor, bank: torch.Tensor, metric: str = "l2",

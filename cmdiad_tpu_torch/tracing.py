@@ -15,11 +15,18 @@ module-attribute read (a ``with span(...)`` also builds the span object:
   the fit a trace may also cover.  ``counters()`` returns the totals with
   ``calls`` and ``images`` (counted at ``predict_call``), which a reader
   divides by.
-* ``to_device`` and ``to_host`` are the predict path's host <-> device
-  copies.  Each is one blocking crossing (``host_syncs``) on a CUDA device;
-  ``to_device`` also counts the bytes it hands over (``h2d_bytes``).  A
-  site counts whatever the device, so a CPU run counts what the same call
-  makes a card do.
+* ``to_device`` and ``to_host`` are the blocking host <-> device copies.
+  Each is one host wait (``host_syncs``) on a CUDA device; ``to_device``
+  also counts the bytes it hands over (``h2d_bytes``).  ``stage`` is the
+  parts' upload: pinned and ``non_blocking`` on a CUDA device, so the host
+  does not wait, and it counts its bytes and no sync.  A site counts
+  whatever the device, so a CPU run counts what the same call makes a card
+  do: ``host_syncs`` counts host waits only.
+* ``constant(device, dtype, build, *args)`` is the device copy of a
+  host-built constant, uploaded (through ``to_device``) on the first
+  request for its key and kept; a miss inside a predict call counts
+  ``const_uploads``, 0 on every warm call (the card test of
+  ``tests/test_torch_tracing.py`` holds it there).
 
 The spans (``predict``, ``upload``, ``readback``, ``fps``, ``knn``,
 ``group_encoder``, ``point_blocks``, ``regrid``, and in each of the ViT's
@@ -35,6 +42,7 @@ from __future__ import annotations
 import functools
 from typing import Dict
 
+import numpy as np
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
@@ -139,6 +147,46 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
     if _open_calls:
         count("host_syncs")
         count("h2d_bytes", t.numel() * t.element_size())
+    return t
+
+
+def stage(x, device) -> torch.Tensor:
+    """A host array on ``device`` without a host wait: on a CUDA device it
+    is copied into a pinned block of PyTorch's caching host allocator,
+    which records the copy's event so that a block is reused only after
+    its copy has run, then copied ``non_blocking``; elsewhere
+    ``torch.as_tensor``.  The array's strides are kept, as
+    ``torch.as_tensor(x, device=...)`` keeps them: a planar image (a
+    resized part) goes up as one flat copy, with no transposition on the
+    host.  The host copy is numpy's, on one thread: ``pin_memory()``'s
+    copy runs on the intra-op threads, and on a shared host one late
+    thread held a call up by tens of milliseconds.  Counts the bytes
+    handed over, and no sync."""
+    t = torch.as_tensor(x)
+    if torch.device(device).type == "cuda":
+        pinned = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, pin_memory=True)
+        np.copyto(pinned.numpy(), t.numpy())
+        t = pinned.to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    count("h2d_bytes", t.numel() * t.element_size())
+    return t
+
+
+_constants: Dict[tuple, torch.Tensor] = {}
+
+
+def constant(device, dtype, build, *args) -> torch.Tensor:
+    """The device copy of ``build(*args)`` (a host array, or a scalar with
+    ``build=float``) in ``dtype`` (None: as ``torch.as_tensor`` infers it),
+    kept for the key (build, args, device, dtype).  Its first request
+    uploads it through ``to_device``; inside a predict call that miss also
+    counts ``const_uploads``.  Callers only read the tensor."""
+    key = (build, args, torch.device(device), dtype)
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = to_device(build(*args), device, dtype)
+        count("const_uploads")
     return t
 
 

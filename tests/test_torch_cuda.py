@@ -833,6 +833,66 @@ def test_quantized_blur_on_the_card_is_bit_equal(dev, rng):
                        blur.quantized_knn_gaussian_blur(t))
 
 
+def test_pinned_uploads_in_flight_equal_blocking_uploads(dev, rng, monkeypatch):
+    """Back-to-back ``add_batch_to_mem_bank`` and ``predict_batch`` calls
+    over distinct batches at full width, queued behind a sleeping stream so
+    that every part's pinned block is still waiting for its copy when the
+    host stages the next one, with no host read between the bank calls, and
+    planar images among the parts: the banks and the predictions are those
+    of the same calls with blocking uploads, a planar image keeping its
+    strides.  The quantized blur still divides by the tensor 255
+    that stays on the card, and gives the CPU's bits."""
+    from cmdiad_tpu_torch import tracing
+    from cmdiad_tpu_torch.ops import blur
+    from test_torch_tracing import _batch, _method
+
+    method = _method("dual", dev, 8192)
+    bank_batches = [_batch(8, 8, 224, 32768, seed=s) for s in (10, 11, 12, 13)]
+    predict_batches = [_batch(8, n, 224, 32768, seed=s) for n, s in ((8, 14), (8, 15), (5, 16))]
+    for b in (bank_batches[1], predict_batches[1]):     # planar, as a resized image is
+        b["rgb"] = np.ascontiguousarray(b["rgb"].transpose(0, 3, 1, 2)).transpose(0, 2, 3, 1)
+    planar = bank_batches[1]["rgb"]
+    assert tracing.stage(planar, dev).stride() == torch.as_tensor(planar, device=dev).stride()
+
+    def run():
+        method._bank_acc = {n: [] for n in method.bank_names}
+        method.reset_predictions()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 31)                       # about a second of a busy stream
+        for b in bank_batches:
+            method.add_batch_to_mem_bank(b, "widget")
+        for b in predict_batches:
+            torch.cuda._sleep(1 << 29)
+            method.predict_batch(b)
+        banks = {n: torch.cat(rows).cpu() for n, rows in method._bank_acc.items()}
+        return banks, list(method.image_preds), [p.copy() for p in method.predictions]
+
+    staged = run()
+    monkeypatch.setattr(tracing, "stage", lambda x, device: torch.as_tensor(
+        np.asarray(x), device=device))
+    blocking = run()
+    monkeypatch.undo()
+    assert staged[0].keys() == blocking[0].keys()
+    assert {n: len(rows) for n, rows in staged[0].items()} == {"xyz": 4 * 8 * 56 * 56,
+                                                                "rgb": 4 * 8 * 28 * 28}
+    for n in staged[0]:
+        assert torch.equal(staged[0][n], blocking[0][n]), n
+    assert len(staged[1]) == 21 and staged[1] == blocking[1]
+    assert all(np.array_equal(a, b) for a, b in zip(staged[2], blocking[2]))
+
+    asked = []
+    real = tracing.constant
+    monkeypatch.setattr(tracing, "constant", lambda device, dtype, build, *args: asked.append(
+        (build, args)) or real(device, dtype, build, *args))
+    maps = torch.from_numpy(np.abs(rng.normal(size=(8, 224, 224))).astype(np.float32))
+    got = blur.quantized_knn_gaussian_blur(maps.to(dev))
+    assert (float, (255.0,)) in asked
+    div = real(dev, torch.float32, float, 255.0)
+    assert isinstance(div, torch.Tensor) and div.device.type == "cuda" and div.dim() == 0
+    assert div.dtype == torch.float32 and float(div) == 255.0
+    assert torch.equal(got.cpu(), blur.quantized_knn_gaussian_blur(maps))
+
+
 def test_jax_fitter_on_the_card_matches_the_cpu(dev, rng, monkeypatch):
     """The float32 steps of the kernel and of its plain version: the same
     bits, over several launches (a launch of two epochs, then one)."""

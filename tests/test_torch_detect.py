@@ -216,10 +216,11 @@ def test_cli_detect_on_cpu_prints_pandas_tables(root, tmp_path):
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert {"span.predict", "span.upload", "span.readback"} <= names
-    # DINO: the rgb upload, two pooling and four scoring constants, the
-    # fuser weights and the two copies back, over 6 parts at batch 3
-    assert ("predict path: 11.00 host syncs and " in proc.stdout
-            and " MB uploaded a call over 2 calls, 6 images" in proc.stdout), proc.stdout
+    # DINO: the rgb part goes up without a host wait (3 x 64² x 3 float32)
+    # and the one packed copy back is the call's one sync; the fit left the
+    # pooling and scoring constants and the fuser weights on the device
+    assert ("predict path: 1.00 host syncs and 0.1475 MB uploaded a call over 2 calls, "
+            "6 images" in proc.stdout), proc.stdout
     scores = [float(ln.split(",")[0])
               for ln in open(tmp_path / "res" / "raw" / "gadget_raw_results.csv")]
     assert len(scores) == 6 and np.all(np.isfinite(scores))
