@@ -15,9 +15,9 @@ field is a flag.  ``--device`` defaults to ``cuda``; ``--trace_dir DIR``
 writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``, which
 holds the port's ``span.*`` ranges (``tracing.SPANS``: the predict call,
 its upload and readback, the point path's FPS, KNN, group encoder,
-blocks and regrid, and each ViT block's attention and MLP), and prints
-the predict path's counters a call (host syncs, MB uploaded) beside the
-trace's path.
+blocks and regrid, each ViT block's attention and MLP, and the gated
+FFN's gate inside the MLP), and prints the predict path's counters a call
+(host syncs, MB uploaded) beside the trace's path.
 The MTFI methods take their fusion net from ``--fusion_module_path`` (a
 reference ``.pth`` or the JAX package's ``.npz``), the backbones their
 weights from ``--rgb_ckpt_path`` and ``--xyz_ckpt_path``.

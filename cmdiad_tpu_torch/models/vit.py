@@ -1,4 +1,5 @@
-"""Vision Transformer (ViT-B/8 DINO, ViT-B/14 and ViT-L/14-reg4 DINOv2) in PyTorch.
+"""Vision Transformer (ViT-B/8 DINO, ViT-B/14, ViT-L/14-reg4 and ViT-g/14-reg4
+DINOv2) in PyTorch.
 
 The RGB backbone of the reference (timm ``vit_base_patch8_224_dino`` run
 as patch_embed -> pos_embed -> 12 blocks -> norm, the patch tokens
@@ -7,8 +8,11 @@ token + learned position embeddings, 4x exact-GELU MLPs, LayerNorm eps
 1e-6, qkv with bias.  DINOv2 adds LayerScale (``ls{1,2}.gamma``) and, in its
 register flavour, register tokens under timm's ``no_embed_class`` rule:
 ``pos_embed`` covers the patches only and is added before cls and the
-registers are prepended.  Module names follow timm, so a timm state dict
-loads directly.
+registers are prepended.  DINOv2's ViT-g replaces the GELU MLP with timm's
+``SwiGLUPacked`` (DINOv2's ``SwiGLUFFNFused``): ``fc1`` maps to twice the
+hidden width, ``silu`` of the first half times the second goes into ``fc2``
+(``ViTConfig.ffn``).  Module names follow timm, so a timm state dict loads
+directly.
 
 Attention goes through ``ops.flash_attn.fused_attention``, whose route
 follows the operands: on a card the fused kernel runs with ``use_flash``
@@ -19,7 +23,8 @@ call site serves both backbones.
 
 Under the profiler (``tracing.py``) each of the ViT's blocks opens the spans
 ``vit_attention`` (norm1, qkv, attention, proj, ``ls1``, residual) and
-``vit_mlp`` (norm2, MLP, ``ls2``, residual), and its attention counts
+``vit_mlp`` (norm2, MLP, ``ls2``, residual), the gated FFN ``vit_gate``
+inside ``vit_mlp`` (``silu(x1) * x2``), and its attention counts
 ``vit_attn_score_bytes``, the bytes of the (B, H, N, N) scores the einsum
 form writes (0 where the call took the kernel or the plain fused form).
 Point-MAE's blocks open neither span and count nothing: they run inside its
@@ -51,6 +56,10 @@ class ViTConfig:
     # DINOv2: LayerScale on both residual branches, and register tokens
     layer_scale: bool = False
     num_reg_tokens: int = 0
+    # the FFN, a key of FFNS: "gelu" or "swiglu" (the gated SiLU MLP)
+    ffn: str = "gelu"
+    # the FFN's hidden width, what fc2 reads; 0 takes int(embed_dim * mlp_ratio)
+    mlp_hidden: int = 0
 
     @property
     def grid(self) -> int:
@@ -73,6 +82,12 @@ VIT_CONFIGS = {
     "vit_large_patch14_reg4_dinov2.lvd142m": ViTConfig(
         img_size=518, patch_size=14, embed_dim=1024, depth=24, num_heads=16,
         layer_scale=True, num_reg_tokens=4),
+    # DINOv2 ViT-g/14 with four registers: 40 blocks of 1536, 24 heads, the
+    # gated FFN (fc1 8192, fc2 4096).  DINOv2 states mlp_ratio 4 and takes
+    # 2/3 of the 6144 rounded up to 8; the width is given as it comes out
+    "vit_giant_patch14_reg4_dinov2.lvd142m": ViTConfig(
+        img_size=518, patch_size=14, embed_dim=1536, depth=40, num_heads=24,
+        layer_scale=True, num_reg_tokens=4, ffn="swiglu", mlp_hidden=4096),
     "tiny": ViTConfig(img_size=64, embed_dim=32, depth=2, num_heads=2),
 }
 
@@ -122,6 +137,25 @@ class Mlp(nn.Module):
         return linear(self.fc2, F.gelu(linear(self.fc1, x)))
 
 
+class GluMlp(nn.Module):
+    """timm's ``SwiGLUPacked``: ``fc1`` to twice the hidden width, SiLU on
+    the first half times the second half, ``fc2``."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, 2 * hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        x1, x2 = linear(self.fc1, x).chunk(2, -1)
+        with tracing.span("vit_gate"):
+            h = F.silu(x1) * x2
+        return linear(self.fc2, h)
+
+
+FFNS = {"gelu": Mlp, "swiglu": GluMlp}
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -133,12 +167,13 @@ class LayerScale(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim, num_heads, mlp_ratio, qkv_bias, ln_eps,
-                 use_flash: bool = False, layer_scale: bool = False):
+                 use_flash: bool = False, layer_scale: bool = False,
+                 ffn: str = "gelu", mlp_hidden: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = Attention(dim, num_heads, qkv_bias, use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = FFNS[ffn](dim, mlp_hidden or int(dim * mlp_ratio))
         self.ls1 = LayerScale(dim) if layer_scale else nn.Identity()
         self.ls2 = LayerScale(dim) if layer_scale else nn.Identity()
 
@@ -175,7 +210,7 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_pos, c.embed_dim))
         self.blocks = nn.ModuleList(
             Block(c.embed_dim, c.num_heads, c.mlp_ratio, c.qkv_bias, c.ln_eps,
-                  use_flash, c.layer_scale) for _ in range(c.depth))
+                  use_flash, c.layer_scale, c.ffn, c.mlp_hidden) for _ in range(c.depth))
         for blk in self.blocks:
             blk.attn.score_counter = "vit_attn_score_bytes"
         self.norm = nn.LayerNorm(c.embed_dim, eps=c.ln_eps)

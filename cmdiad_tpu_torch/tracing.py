@@ -29,8 +29,9 @@ module-attribute read (a ``with span(...)`` also builds the span object:
   ``tests/test_torch_tracing.py`` holds it there).
 
 The spans (``predict``, ``upload``, ``readback``, ``fps``, ``knn``,
-``group_encoder``, ``point_blocks``, ``regrid``, and in each of the ViT's
-blocks ``vit_attention`` and ``vit_mlp``) and the counters (``host_syncs``,
+``group_encoder``, ``point_blocks``, ``regrid``, in each of the ViT's
+blocks ``vit_attention`` and ``vit_mlp``, and inside ``vit_mlp`` the gated
+FFN's ``vit_gate``) and the counters (``host_syncs``,
 ``h2d_bytes``, and ``vit_attn_score_bytes``, the bytes of the score tensors
 the ViT's einsum attention writes, ``ops/flash_attn.py``) are read by the
 per-layer metrics of ``perfbench/layer_metrics/`` and label the idle gaps
@@ -48,7 +49,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 #: names of the spans the predict path opens
 SPANS = ("predict", "upload", "readback", "fps", "knn", "group_encoder",
-         "point_blocks", "regrid", "vit_attention", "vit_mlp")
+         "point_blocks", "regrid", "vit_attention", "vit_mlp", "vit_gate")
 
 _counts: Dict[str, int] = {}
 _open_calls = 0

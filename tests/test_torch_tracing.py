@@ -12,11 +12,14 @@ serve a random fitted state; on the CPU at the tiny widths:
   go up without a host wait), ``const_uploads`` is 0, ``calls`` and
   ``images`` the batches and parts;
 * each of the ViT's blocks opens ``vit_attention`` and ``vit_mlp`` once,
-  only under the profiler, and Point-MAE's blocks open neither;
+  only under the profiler, and Point-MAE's blocks open neither; the gated
+  FFN opens ``vit_gate`` once a block inside ``vit_mlp``, and a GELU ViT,
+  the ViT with registers and Point-MAE open none;
   ``vit_attn_score_bytes`` is B * H * N² * 4 a block on the einsum path and
   0 on the fused one;
 * no span name is one that ``perfbench/spans.json`` wraps, and the
-  benchmark's readers of the counters read them (or nothing).
+  benchmark's readers of the counters and of ``vit_gate`` read them (or
+  nothing).
 
 On a card (``cuda``, skipped without one), at the configurations' full
 widths: ``host_syncs`` equals the synchronisations
@@ -31,6 +34,7 @@ The file imports no JAX:
 """
 
 import collections
+import dataclasses
 import json
 import warnings
 from pathlib import Path
@@ -55,6 +59,7 @@ TINY = dict(rgb_backbone_name="tiny", xyz_backbone_name="tiny", rgb_size=64,
             xyz_size=64, gt_size=64, num_group=32, group_size=16)
 XYZ_SPANS = ("fps", "knn", "group_encoder", "point_blocks", "regrid")
 VIT_SPANS = ("vit_attention", "vit_mlp")
+GATE = "vit_gate"
 BATCH = 3
 
 
@@ -185,16 +190,17 @@ def test_counting_stops_outside_a_predict_call():
 
 def test_span_names_are_not_the_benchmarks_wrapped_names():
     wrapped = set(json.loads((REPO / "perfbench" / "spans.json").read_text()))
-    assert len(set(tracing.SPANS)) == len(tracing.SPANS) == 10
+    assert len(set(tracing.SPANS)) == len(tracing.SPANS) == 11
     assert not wrapped & set(tracing.SPANS)
 
 
 REG4 = ViTConfig(img_size=56, patch_size=8, embed_dim=32, depth=3, num_heads=2,
                 layer_scale=True, num_reg_tokens=4)
+GATED = dataclasses.replace(REG4, ffn="swiglu", mlp_hidden=48)
 
 
-def _vit(use_flash=False):
-    net = VisionTransformer(REG4, use_flash=use_flash)
+def _vit(use_flash=False, config=REG4):
+    net = VisionTransformer(config, use_flash=use_flash)
     gen = torch.Generator().manual_seed(4)
     with torch.no_grad():
         for p in net.parameters():
@@ -216,6 +222,26 @@ def test_vit_spans_open_once_a_block_and_only_under_the_profiler(monkeypatch):
         net(x)
 
 
+@pytest.mark.parametrize("config, gates", [
+    (ViTConfig(img_size=56, embed_dim=32, depth=3, num_heads=2), 0), (REG4, 0),
+    (GATED, GATED.depth)], ids=["gelu", "reg4", "gated"])
+def test_vit_gate_opens_once_a_block_inside_vit_mlp_in_the_gated_vit(config, gates, monkeypatch):
+    net, x = _vit(config=config), torch.randn(2, 56, 56, 3)
+    with torch.no_grad():
+        events = _profiled(lambda: net(x))
+    seen = collections.Counter(e.name[len("span."):] for e in events)
+    assert seen == {**dict.fromkeys(VIT_SPANS, config.depth), **({GATE: gates} if gates else {})}
+    mlps = [e.time_range for e in events if e.name == "span.vit_mlp"]
+    for e in events:
+        if e.name == "span." + GATE:
+            assert sum(m.start <= e.time_range.start <= e.time_range.end <= m.end
+                       for m in mlps) == 1
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: pytest.fail("range opened"))
+    with torch.no_grad():
+        net(x)
+
+
 def test_point_mae_blocks_open_no_vit_span():
     cfg = PointMAEConfig(num_group=16, group_size=8, encoder_dims=16, trans_dim=16, depth=3,
                          num_heads=2, fetch_idx=(0, 2))
@@ -226,7 +252,7 @@ def test_point_mae_blocks_open_no_vit_span():
         events = _profiled(lambda: net(pts, centers, ori_idx))
     names = collections.Counter(e.name for e in events)
     assert names["span.point_blocks"] == 1
-    assert not {"span." + n for n in VIT_SPANS} & set(names)
+    assert not {"span." + n for n in (*VIT_SPANS, GATE)} & set(names)
 
 
 @pytest.mark.parametrize("use_flash", [False, True], ids=["einsum", "fused"])
@@ -262,6 +288,20 @@ def test_benchmark_readers_of_the_counters(metric, counts, value, monkeypatch):
     monkeypatch.setattr(tracing, "_counts", dict(counts))
     assert spec.reader(metric).read(None) == value
     assert spec.reader(metric + ".b1").read(None) == value
+
+
+@pytest.mark.parametrize("spans, images, value", [
+    ({"vit_gate": 0.0125, "vit_mlp": 0.1}, 8, 1.5625),
+    ({"vit_mlp": 0.1}, 8, None),
+    ({"vit_gate": 0.0125}, 0, None),
+])
+def test_vit_gate_reader_on_a_reduced_trace(spans, images, value):
+    from perfbench.core import spec, trace
+    from perfbench.core.cell import LayerContext
+    red = trace.Reduced(window_s=1.0, busy_s=0.9, span_device_s=spans, device_ops=[],
+                        idle_gaps=[])
+    ctx = LayerContext(red, {}, images, spec.load_config("dinov2g_reg4_pointmae"), 0.09)
+    assert spec.reader("vit_gate.device_ms").read(ctx) == value
 
 
 # ---------------------------------------------------------------- card

@@ -198,5 +198,7 @@ def test_readers_of_the_vit_metrics(config, metric, spans, value):
 def test_the_published_config_is_the_configurations_vit_reg_block():
     c = VIT_CONFIGS["vit_large_patch14_reg4_dinov2.lvd142m"]
     block = spec.load_config("dinov2l_reg4_pointmae")["vit_reg"]
-    assert dataclasses.asdict(c) == {k: v for k, v in block.items() if k != "source"}
+    # the block names no FFN: the entry runs the GELU MLP at 4 x 1024
+    assert dataclasses.asdict(c) == {"ffn": "gelu", "mlp_hidden": 0, **{
+        k: v for k, v in block.items() if k != "source"}}
     assert c.num_patches == 1369 and c.grid == 37
